@@ -1,0 +1,178 @@
+"""Audio attention at eval: the RGB segment feature queries the audio
+feature's time axis.
+
+Port of the JAX package's ``models/attention.py`` (reference
+core/models/attention.py). Layouts are batch-first: features (B, C), audio
+sequence (B, S, C). Module and parameter names follow the reference state
+dict (``pe.0.pe``, ``pe.1.weight``, ``pe.2.weight``,
+``attention_layer.attention_layer.in_proj_weight``,
+``attention_layer.seq.0.weight``, ``attention_layer.prototype_wts``).
+
+With ``use_kernels`` the PE block and the MHA go through
+``ops.kernels.pe_block`` / ``ops.kernels.mha``: the CUDA kernels on the card,
+their plain versions on the CPU. Without it they call the plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..data.priors import gaussian_kernel
+from ..ops import kernels
+from .layers import lecun_normal_, linear, reset_linear_
+
+PE_CHANNELS = 10  # reference model.py:64 — PositionalEncoding(10, ...)
+
+
+def positional_encoding_table(dim_size: int, max_len: int) -> np.ndarray:
+    """(max_len, dim_size) table; pe[p, 2i] = sin(p*(i+1)), pe[p, 2i+1] =
+    cos(p*(i+1)) — the reference's product form (attention.py:26-30)."""
+    position = np.arange(max_len, dtype=np.float64)[:, None] * np.arange(
+        1, dim_size // 2 + 1, dtype=np.float64
+    )
+    table = np.zeros((max_len, dim_size), dtype=np.float64)
+    table[:, 0::2] = np.sin(position)
+    table[:, 1::2] = np.cos(position)
+    return table.astype(np.float32)
+
+
+class _PETable(nn.Module):
+    """Holds the reference's ``pe`` buffer, (1, dim, max_len)."""
+
+    def __init__(self, dim_size: int, max_len: int):
+        super().__init__()
+        table = torch.from_numpy(positional_encoding_table(dim_size, max_len))
+        self.register_buffer("pe", table.T.contiguous()[None])
+
+
+class PositionalEncoding(nn.Sequential):
+    """Concat-PE + 1x1 conv (C + dim -> out) + GroupNorm(num_groups), laid
+    out as the reference's ``pe`` Sequential (table, Conv1d, GroupNorm)."""
+
+    def __init__(self, dim_size: int = PE_CHANNELS, max_len: int = 25,
+                 in_features: int = 1024, out_features: int = 1024, num_groups: int = 64):
+        super().__init__(
+            _PETable(dim_size, max_len),
+            nn.Conv1d(in_features + dim_size, out_features, 1),
+            nn.GroupNorm(num_groups, out_features, eps=1e-5),
+        )
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        conv = self[1]
+        lecun_normal_(conv.weight, generator)
+        conv.bias.zero_()
+        self[2].reset_parameters()
+
+    def forward(self, x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+        """x (B, S, C) -> (B, S, out) in x's dtype."""
+        conv, norm = self[1], self[2]
+        table = self[0].pe[0, :, : x.shape[1]].T  # (S, dim)
+        fn = kernels.pe_block if use_kernels else kernels.pe_block_plain
+        return fn(x, table, conv.weight.view(conv.weight.shape[0], -1), conv.bias,
+                  norm.weight, norm.bias, num_groups=norm.num_groups, eps=norm.eps)
+
+
+class MultiheadAttention(nn.Module):
+    """torch.nn.MultiheadAttention's parameters (packed in_proj, out_proj)
+    with the single-query, key-is-value forward the TBN uses."""
+
+    def __init__(self, embed_dim: int = 1024, num_heads: int = 4):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for block in self.in_proj_weight.chunk(3):  # q, k, v: one init each
+            lecun_normal_(block, generator)
+        self.in_proj_bias.zero_()
+        reset_linear_(self.out_proj, generator)
+
+    def forward(self, query: torch.Tensor, keyval: torch.Tensor,
+                use_kernels: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """query (B, E), keyval (B, S, E) -> (B, E) output and (B, 1, S)
+        head-averaged weights, both in the query's dtype."""
+        fn = kernels.mha if use_kernels else kernels.mha_plain
+        out, wts = fn(query, keyval, self.in_proj_weight, self.in_proj_bias,
+                      self.out_proj.weight, self.out_proj.bias, self.num_heads)
+        return out, wts[:, None, :]
+
+
+class MHAttention(nn.Module):
+    """The reference's attention wrapper, holding the MHA as
+    ``attention_layer`` (state-dict ``attention_layer.attention_layer.*``)."""
+
+    def __init__(self, embed_dim: int = 1024, num_heads: int = 4):
+        super().__init__()
+        self.attention_layer = MultiheadAttention(embed_dim, num_heads)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attention_layer.reset_parameters(generator)
+
+    def forward(self, query, keyval, use_kernels: bool):
+        return self.attention_layer(query, keyval, use_kernels)
+
+
+class UniModalAttention(nn.Module):
+    """MLP(rgb) -> softmax over the audio time axis -> weighted sum (eval:
+    plain softmax, no gumbel)."""
+
+    def __init__(self, win_size: int, in_features: int = 1024, hidden_size: int = 256,
+                 n_out: int = None):
+        super().__init__()
+        self.seq = nn.Sequential(
+            nn.Linear(in_features, hidden_size), nn.ReLU(),
+            nn.Linear(hidden_size, win_size if n_out is None else n_out),
+        )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_linear_(self.seq[0], generator)
+        reset_linear_(self.seq[2], generator)
+
+    def _mix(self, rgb_feature: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = F.relu(linear(rgb_feature, self.seq[0], dtype))
+        logits = linear(y, self.seq[2], dtype)
+        return torch.softmax(logits.float(), dim=-1).to(dtype)
+
+    def forward(self, rgb_feature, audio_sequence):
+        """(B, C), (B, S, C) -> (B, C) attended feature, (B, S) weights."""
+        dtype = audio_sequence.dtype
+        weights = self._mix(rgb_feature, dtype)
+        return _weighted_sum(audio_sequence, weights), weights
+
+
+class PrototypeAttention(UniModalAttention):
+    """MLP(rgb) mixes 3 Gaussian prototype curves over the time axis."""
+
+    def __init__(self, win_size: int, in_features: int = 1024, hidden_size: int = 256):
+        super().__init__(win_size, in_features, hidden_size, n_out=3)
+        self.register_buffer("prototype_wts", torch.from_numpy(prototypes(win_size)))
+
+    def forward(self, rgb_feature, audio_sequence):
+        dtype = audio_sequence.dtype
+        weights = torch.matmul(self._mix(rgb_feature, dtype), self.prototype_wts.to(dtype))
+        return _weighted_sum(audio_sequence, weights), weights
+
+
+def prototypes(win_size: int) -> np.ndarray:
+    """(3, win) — the centred Gaussian and its +-(win//2 - 2) rolls
+    (reference attention.py:121-132)."""
+    base = gaussian_kernel(win_size, sigma=1.0)
+    shift = win_size // 2 - 2
+    return np.concatenate(
+        (base, np.roll(base, -shift), np.roll(base, shift)), axis=1
+    ).T.astype(np.float32)
+
+
+def _weighted_sum(sequence: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sum_s w[b, s] * seq[b, s, :] with float32 accumulation."""
+    out = torch.einsum("bsc,bs->bc", sequence.float(), weights.float())
+    return out.to(sequence.dtype)

@@ -1,0 +1,155 @@
+"""BN-Inception feature tower (eval), NCHW.
+
+Port of the JAX package's ``models/bn_inception.py``: the public
+Inception-BN graph the reference takes from ``pretrainedmodels``
+
+    stem: 7x7/2 conv(64) -> maxpool/2 -> 1x1 conv(64) -> 3x3 conv(192) -> maxpool/2
+    inception 3a 3b | 3c(/2) | 4a 4b 4c 4d | 4e(/2) | 5a 5b -> global avg pool
+
+with torch ``ceil_mode`` pools. Every conv is followed by BatchNorm and
+ReLU; at eval the BatchNorm folds into the conv (layers.FoldCache).
+
+Modules are flat attributes named as in the reference state dict
+(``conv1_7x7_s2`` + ``conv1_7x7_s2_bn``, ``inception_3a_1x1`` + ``..._bn``),
+so weights in the reference ``.pth`` layout load with ``strict=True``.
+
+Head variants (reference bn_inception.py:16-35): global average pool ->
+(B, 1024); ``freq_pool_only`` (audio tower under attention) pools the
+frequency axis only -> (B, T, 1024). ``audio_stem`` replaces the 7x7 stem
+with two parallel stride-2 convs, (3,1) and (1,3), concatenated to 64
+channels (reference bn_inception_audio.py:11-23; the reference's "1x3" conv
+has a (3,1) kernel and vice versa).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.pooling import avg_pool2d, global_avg_pool, max_pool2d
+from .layers import BN_EPSILON, FoldCache, variance_scaling_
+
+
+@dataclass(frozen=True)
+class InceptionSpec:
+    """Channel widths of one Inception-BN block."""
+
+    b1x1: int  # 1x1 branch (0 = reduction block, branch absent)
+    r3x3: int  # 3x3 branch reduce
+    b3x3: int  # 3x3 branch out
+    rd3x3: int  # double-3x3 branch reduce
+    d3x3: int  # double-3x3 branch out (both convs)
+    proj: int  # pool-projection out (0 = passthrough max pool)
+    pool: str  # "avg" or "max" pool branch
+    stride: int = 1
+
+
+# Standard Inception-BN configuration. Output channels:
+# 3a 256, 3b 320, 3c 576, 4a-4b 576, 4c-4d 608, 4e 1056, 5a-5b 1024.
+BN_INCEPTION_BLOCKS: Tuple[Tuple[str, InceptionSpec], ...] = (
+    ("inception_3a", InceptionSpec(64, 64, 64, 64, 96, 32, "avg")),
+    ("inception_3b", InceptionSpec(64, 64, 96, 64, 96, 64, "avg")),
+    ("inception_3c", InceptionSpec(0, 128, 160, 64, 96, 0, "max", stride=2)),
+    ("inception_4a", InceptionSpec(224, 64, 96, 96, 128, 128, "avg")),
+    ("inception_4b", InceptionSpec(192, 96, 128, 96, 128, 128, "avg")),
+    ("inception_4c", InceptionSpec(160, 128, 160, 128, 160, 128, "avg")),
+    ("inception_4d", InceptionSpec(96, 128, 192, 160, 192, 128, "avg")),
+    ("inception_4e", InceptionSpec(0, 128, 192, 192, 256, 0, "max", stride=2)),
+    ("inception_5a", InceptionSpec(352, 192, 320, 160, 224, 128, "avg")),
+    ("inception_5b", InceptionSpec(352, 192, 320, 192, 224, 128, "max")),
+)
+
+FEATURE_SIZE = 1024
+
+
+class BNInception(nn.Module):
+    """BN-Inception tower; ``forward`` is the eval graph."""
+
+    def __init__(self, in_channels: int, freq_pool_only: bool = False,
+                 audio_stem: bool = False):
+        super().__init__()
+        self.freq_pool_only = freq_pool_only
+        self.audio_stem = audio_stem
+        self._folded = FoldCache()
+        if audio_stem:
+            self._conv_bn("conv1_1x3_s2", in_channels, 32, (3, 1), 2, (1, 0))
+            self._conv_bn("conv1_3x1_s2", in_channels, 32, (1, 3), 2, (0, 1))
+        else:
+            self._conv_bn("conv1_7x7_s2", in_channels, 64, 7, 2, 3)
+        self._conv_bn("conv2_3x3_reduce", 64, 64, 1)
+        self._conv_bn("conv2_3x3", 64, 192, 3, 1, 1)
+        cin = 192
+        for name, s in BN_INCEPTION_BLOCKS:
+            if s.b1x1:
+                self._conv_bn(f"{name}_1x1", cin, s.b1x1, 1)
+            self._conv_bn(f"{name}_3x3_reduce", cin, s.r3x3, 1)
+            self._conv_bn(f"{name}_3x3", s.r3x3, s.b3x3, 3, s.stride, 1)
+            self._conv_bn(f"{name}_double_3x3_reduce", cin, s.rd3x3, 1)
+            self._conv_bn(f"{name}_double_3x3_1", s.rd3x3, s.d3x3, 3, 1, 1)
+            self._conv_bn(f"{name}_double_3x3_2", s.d3x3, s.d3x3, 3, s.stride, 1)
+            if s.proj:
+                self._conv_bn(f"{name}_pool_proj", cin, s.proj, 1)
+            cin = s.b1x1 + s.b3x3 + s.d3x3 + (s.proj if s.proj else cin)
+
+    def _conv_bn(self, name, cin, cout, kernel, stride=1, padding=0):
+        self.add_module(name, nn.Conv2d(cin, cout, kernel, stride, padding))
+        self.add_module(f"{name}_bn", nn.BatchNorm2d(cout, eps=BN_EPSILON))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's init: fan-out truncated-normal conv kernels,
+        zero biases, identity BatchNorm."""
+        for module in self.children():
+            if isinstance(module, nn.Conv2d):
+                variance_scaling_(module.weight, 2.0, "fan_out", generator)
+                module.bias.zero_()
+            elif isinstance(module, nn.BatchNorm2d):
+                module.reset_parameters()
+
+    def _cbr(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Conv (BN folded) + ReLU, computed in x's dtype."""
+        conv = getattr(self, name)
+        w, b = self._folded.get(name, conv, getattr(self, f"{name}_bn"), x.dtype)
+        return F.relu(F.conv2d(x, w, b, conv.stride, conv.padding), inplace=True)
+
+    def _block(self, name: str, s: InceptionSpec, x: torch.Tensor) -> torch.Tensor:
+        branches = []
+        if s.b1x1:
+            branches.append(self._cbr(f"{name}_1x1", x))
+        branches.append(self._cbr(f"{name}_3x3", self._cbr(f"{name}_3x3_reduce", x)))
+        d = self._cbr(f"{name}_double_3x3_1", self._cbr(f"{name}_double_3x3_reduce", x))
+        branches.append(self._cbr(f"{name}_double_3x3_2", d))
+        if s.proj:
+            if s.pool == "avg":
+                pooled = avg_pool2d(x, 3, 1, 1, ceil_mode=True, count_include_pad=True)
+            else:
+                pooled = max_pool2d(x, 3, 1, 1, ceil_mode=True)
+            branches.append(self._cbr(f"{name}_pool_proj", pooled))
+        else:
+            branches.append(max_pool2d(x, 3, s.stride, 0, ceil_mode=True))
+        return torch.cat(branches, dim=1)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                input_scale: Optional[torch.Tensor] = None,
+                input_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """NCHW input -> features in ``dtype``.
+
+        (input_scale, input_offset): per-channel affine that normalizes a raw
+        uint8 input, applied in ``dtype`` before the stem's zero padding."""
+        x = x.to(dtype)
+        if input_scale is not None:
+            x = x * input_scale.to(dtype)[:, None, None] + input_offset.to(dtype)[:, None, None]
+        if self.audio_stem:
+            y = torch.cat([self._cbr("conv1_1x3_s2", x), self._cbr("conv1_3x1_s2", x)], dim=1)
+        else:
+            y = self._cbr("conv1_7x7_s2", x)
+        y = max_pool2d(y, 3, 2, 0, ceil_mode=True)
+        y = self._cbr("conv2_3x3", self._cbr("conv2_3x3_reduce", y))
+        y = max_pool2d(y, 3, 2, 0, ceil_mode=True)
+        for name, s in BN_INCEPTION_BLOCKS:
+            y = self._block(name, s, y)
+        return global_avg_pool(y, freq_only=self.freq_pool_only)

@@ -1,0 +1,105 @@
+"""Inference building blocks with the JAX package's numerics.
+
+Port of the math of the JAX package's ``models/layers.py`` at eval:
+convolutions with bias, BatchNorm on running statistics (eps 1e-5) folded
+into the preceding convolution, Linear layers computed in the compute dtype,
+and the seeded initializers. Parameters stay float32 nn.Module parameters
+in the reference PyTorch layout (OIHW convs, (out, in) linears); compute
+casts them to the compute dtype, as the JAX package does.
+
+The JAX package's TPU lowerings (the column-packed stem, FoldedConvBN with
+merged 1x1 convolutions) are exact rewrites of the same math and are not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPSILON = 1e-5
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Standard deviation of a unit normal truncated to [-2, 2]; flax's
+# truncated_normal variance scaling divides by it.
+_TRUNC_STD = 0.87962566103423978
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {name!r} not in {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+@torch.no_grad()
+def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d,
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BN(conv(x, W) + b) on running statistics == conv(x, W*s) + (b*s + o)
+    with s = gamma / sqrt(var + eps), o = beta - mean*s; folded in float32,
+    returned in ``dtype``."""
+    s = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    w = conv.weight * s[:, None, None, None]
+    b = conv.bias * s + (bn.bias - bn.running_mean * s)
+    return w.to(dtype), b.to(dtype)
+
+
+class FoldCache:
+    """Folded (kernel, bias) per convolution, refolded whenever a source
+    tensor changed: an in-place update (``load_state_dict``) bumps the
+    tensor's version, a ``.to(device)`` swaps its storage. Saves the ~10
+    small launches per convolution that folding costs on every forward."""
+
+    def __init__(self):
+        self._entries: Dict[str, tuple] = {}
+
+    def get(self, name: str, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype):
+        sources = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
+                   bn.running_var)
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in sources)
+        hit = self._entries.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key,) + fold_conv_bn(conv, bn, dtype)
+            self._entries[name] = hit
+        return hit[1], hit[2]
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """nn.Linear computed in ``dtype`` (the JAX package's TorchLinear)."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+@torch.no_grad()
+def variance_scaling_(weight: torch.Tensor, scale: float, mode: str,
+                      generator: torch.Generator) -> None:
+    """flax ``variance_scaling(scale, mode, "truncated_normal")`` on a torch-
+    layout weight ((out, in, *kernel) or (out, in))."""
+    receptive = math.prod(weight.shape[2:]) if weight.dim() > 2 else 1
+    fan = weight.shape[0 if mode == "fan_out" else 1] * receptive
+    std = math.sqrt(scale / fan) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default Dense kernel init."""
+    variance_scaling_(weight, 1.0, "fan_in", generator)
+
+
+@torch.no_grad()
+def normal_init_(weight: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """N(0, std) — the reference's head init (heads.py normal_init)."""
+    weight.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def reset_linear_(layer: nn.Linear, generator: torch.Generator,
+                  std: float = None) -> None:
+    """Lecun-normal kernel (or N(0, std) when given) and a zero bias."""
+    if std is None:
+        lecun_normal_(layer.weight, generator)
+    else:
+        normal_init_(layer.weight, std, generator)
+    layer.bias.zero_()

@@ -1,0 +1,251 @@
+"""The Temporal Binding Network's eval forward in PyTorch.
+
+Port of the JAX package's ``models/tbn.py`` (reference
+core/models/model.py:205-262):
+
+* per-modality BN-Inception towers run on the (batch * segments) folded
+  batch; the audio waveform becomes a log spectrogram inside the forward;
+* the audio feature is reduced with fixed prior weights, or attended with
+  the first modality's feature as query (MHA / unimodal / prototype);
+* under 10-crop the audio rows are tiled to the visual crop rows;
+* features concat -> Fusion(512) when multimodal -> per-class heads ->
+  segment consensus = mean of the logits over segments.
+
+Inputs keep the JAX package's layouts: RGB (B, N, H, W, 3) and Flow
+(B, N, H, W, 2*win), uint8 or float; Audio waveform (B, N, L) or
+spectrogram (B, N, F, T, 1); fixed prior weights (B, N, W, 1). Inside the
+towers activations are NCHW.
+
+Training-only branches (audio dropout, live BatchNorm, gumbel) are not
+ported yet: the forward refuses ``train()`` mode.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..data.priors import attention_window_size
+from ..ops.spectrogram import spectrogram
+from ..utils.device import tf32_scope
+from .attention import MHAttention, PositionalEncoding, PrototypeAttention, UniModalAttention
+from .bn_inception import FEATURE_SIZE, BNInception
+from .heads import Classifier, Fusion
+from .layers import compute_dtype
+
+
+def tile_crop_rows(feature: torch.Tensor, b: int, reps: int) -> torch.Tensor:
+    """Broadcast per-(sample, segment) rows to ``reps`` crop rows.
+
+    Visual streams under 10-crop eval are crop-major within each sample:
+    row = loc*2N + seg*2 + flip. Audio carries one row per segment; this
+    sends row (b, seg) to its ``reps`` crop rows so Fusion pairs matching
+    segments. Works on any trailing shape."""
+    n_seg = feature.shape[0] // b
+    trailing = feature.shape[1:]
+    if reps % 2 == 0:  # ten-crop style: (loc, seg, flip) row order
+        out = feature.reshape((b, 1, n_seg, 1) + trailing).expand(
+            (b, reps // 2, n_seg, 2) + trailing
+        )
+    else:  # plain per-sample repeat
+        out = feature.reshape((b, 1, n_seg) + trailing).expand((b, reps, n_seg) + trailing)
+    return out.reshape((b * reps * n_seg,) + trailing)
+
+
+@dataclass(frozen=True)
+class TBNSpec:
+    """Model configuration the eval forward reads from the config tree."""
+
+    modality: Tuple[str, ...] = ("RGB", "Flow", "Audio")
+    arch: str = "bninception"
+    num_classes: Tuple[Tuple[str, int], ...] = (("verb", 125), ("noun", 352))
+    attention_enable: bool = True
+    attention_type: str = "mha"
+    use_pe: bool = True
+    use_fixed: bool = False
+    attn_heads: int = 4
+    attn_win: int = 13
+    # Modalities whose tower uses the two-branch (3,1)/(1,3) audio stem.
+    audio_stem: Tuple[str, ...] = ()
+    flow_win_length: int = 5
+    spec_type: str = "stft"
+    sampling_rate: int = 24000
+    compute_dtype: str = "float32"
+    # Run the hand-written kernels (tpu.use_pallas).
+    use_pallas: bool = False
+    # Average features before the heads instead of logits after them (same
+    # math: consensus commutes with the linear heads).
+    fast_consensus: bool = False
+    # RGB mean is BGR-ordered, matching the reference's BGR decode.
+    rgb_mean: Tuple[float, ...] = (0.408, 0.459, 0.502)
+    rgb_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
+    flow_mean: Tuple[float, ...] = (0.502,)
+    flow_std: Tuple[float, ...] = (1.0,)
+
+    @classmethod
+    def from_config(cls, cfg, modality) -> "TBNSpec":
+        att = cfg.model.attention
+        return cls(
+            modality=tuple(modality),
+            arch=cfg.model.arch,
+            num_classes=tuple(cfg.model.num_classes.items()),
+            attention_enable=bool(att.enable),
+            attention_type=att.type,
+            use_pe=bool(att.use_pe),
+            use_fixed=bool(att.use_fixed),
+            attn_heads=int(att.attn_heads),
+            attn_win=attention_window_size(cfg.data.audio.audio_length),
+            audio_stem=("Audio",) if cfg.get_path("model.bninception.audio_stem", False) else (),
+            rgb_mean=tuple(cfg.data.rgb.mean),
+            rgb_std=tuple(cfg.data.rgb.std),
+            flow_mean=tuple(cfg.data.flow.mean),
+            flow_std=tuple(cfg.data.flow.std),
+            flow_win_length=int(cfg.data.flow.win_length),
+            spec_type=cfg.data.audio.spec_type,
+            sampling_rate=int(cfg.data.audio.sampling_rate),
+            compute_dtype=cfg.get_path("tpu.compute_dtype", "float32") or "float32",
+            use_pallas=bool(cfg.get_path("tpu.use_pallas", False)),
+            fast_consensus=bool(cfg.get_path("tpu.fast_consensus", False)),
+        )
+
+    @property
+    def multimodal(self) -> bool:
+        return len(self.modality) > 1
+
+    @property
+    def audio_attends(self) -> bool:
+        """Audio tower keeps its temporal axis (freq-only pooling)."""
+        return "Audio" in self.modality and self.attention_enable
+
+    @property
+    def learned_attention(self) -> bool:
+        return self.audio_attends and not self.use_fixed
+
+    def validate(self) -> None:
+        if self.arch != "bninception":
+            raise ValueError(
+                f"arch {self.arch!r} is not ported yet; the port has the "
+                "bninception towers only"
+            )
+        if self.attention_enable and not self.use_fixed and self.modality == ("Audio",):
+            raise ValueError(
+                "learned attention needs a visual query modality; "
+                "audio-only supports attention.use_fixed only"
+            )
+        if self.attention_enable and self.attention_type not in ("mha", "unimodal", "proto"):
+            raise ValueError(f"Unknown attention type {self.attention_type!r}")
+        compute_dtype(self.compute_dtype)
+
+
+class TBNModel(nn.Module):
+    """Eval-mode TBN; module names follow the reference state dict."""
+
+    def __init__(self, spec: TBNSpec):
+        super().__init__()
+        spec.validate()
+        self.spec = spec
+        in_channels = {"RGB": 3, "Flow": 2 * spec.flow_win_length, "Audio": 1}
+        for m in spec.modality:
+            self.add_module(f"Base_{m}", BNInception(
+                in_channels[m],
+                freq_pool_only=(m == "Audio" and spec.audio_attends),
+                audio_stem=(m in spec.audio_stem),
+            ))
+        if spec.learned_attention:
+            if spec.attention_type == "mha":
+                if spec.use_pe:
+                    self.pe = PositionalEncoding(max_len=spec.attn_win)
+                self.attention_layer = MHAttention(FEATURE_SIZE, spec.attn_heads)
+            elif spec.attention_type == "unimodal":
+                self.attention_layer = UniModalAttention(spec.attn_win)
+            else:
+                self.attention_layer = PrototypeAttention(spec.attn_win)
+        n_features = FEATURE_SIZE * len(spec.modality)
+        if spec.multimodal:
+            self.fusion = Fusion(n_features, 512)
+            n_features = 512
+        self.classifier = Classifier(n_features, dict(spec.num_classes))
+        # uint8 -> (v/255 - mean)/std == v*scale + offset, per channel;
+        # mean/std repeat across the Flow stack (reference Normalize).
+        for m, mean, std in (("RGB", spec.rgb_mean, spec.rgb_std),
+                             ("Flow", spec.flow_mean, spec.flow_std)):
+            reps = in_channels[m] // len(mean)
+            mean_t = torch.tensor(mean * reps, dtype=torch.float32)
+            std_t = torch.tensor(std * reps, dtype=torch.float32)
+            self.register_buffer(f"_{m}_scale", 1.0 / (255.0 * std_t), persistent=False)
+            self.register_buffer(f"_{m}_offset", -mean_t / std_t, persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init with the JAX package's initializers, module by module
+        in registration order."""
+        for module in self.children():
+            module.reset_parameters(generator)
+
+    def forward(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.training:
+            raise RuntimeError("only the eval forward is ported; call .eval() first")
+        with tf32_scope(self.spec.compute_dtype):
+            return self._forward(batch)
+
+    def _forward(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        spec = self.spec
+        dtype = compute_dtype(spec.compute_dtype)
+        use_kernels = spec.use_pallas
+        features = []
+        att_wts = None
+        for m in spec.modality:
+            x = batch[m]
+            b, n = x.shape[0], x.shape[1]
+            if m == "Audio" and x.dim() == 3:
+                x = spectrogram(x.reshape(b * n, x.shape[-1]), spec.spec_type,
+                                spec.sampling_rate, dtype)[:, None]
+            else:  # (B, N, H, W, C) -> (B*N, C, H, W)
+                x = x.reshape((b * n,) + x.shape[2:]).permute(0, 3, 1, 2)
+            scale = offset = None
+            if m in ("RGB", "Flow") and x.dtype == torch.uint8:
+                scale, offset = getattr(self, f"_{m}_scale"), getattr(self, f"_{m}_offset")
+            feature = getattr(self, f"Base_{m}")(x, dtype, scale, offset)
+            if m == "Audio":
+                feature, att_wts = self._attend(batch, features, feature, b, use_kernels)
+                if features and features[0].shape[0] > feature.shape[0]:
+                    feature = tile_crop_rows(feature, b, features[0].shape[0] // feature.shape[0])
+            features.append(feature)
+
+        n_consensus = features[0].shape[0] // b
+        fused = torch.cat(features, dim=-1)
+        if spec.multimodal:
+            fused = self.fusion(fused, dtype)
+        if spec.fast_consensus:
+            pooled = fused.reshape(b, n_consensus, -1).float().mean(dim=1).to(dtype)
+            out = {k: v.float() for k, v in self.classifier(pooled, dtype).items()}
+        else:
+            out = {
+                k: v.reshape(b, n_consensus, -1).float().mean(dim=1)
+                for k, v in self.classifier(fused, dtype).items()
+            }
+        if att_wts is not None:
+            out["weights"] = att_wts
+        return out
+
+    def _attend(self, batch, features, feature, b: int,
+                use_kernels: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Audio post-tower path: (feature (B*N, C), weights or None)."""
+        spec = self.spec
+        if not spec.attention_enable:
+            return feature, None  # already globally pooled
+        if spec.use_fixed:
+            # feature (B*N, T, C); weights (B, N, W, 1) -> (B*N, W)
+            weights = batch["weights"].reshape(feature.shape[0], -1).to(feature.dtype)
+            out = torch.einsum("btc,bt->bc", feature.float(), weights.float())
+            return out.to(feature.dtype), None
+        query = features[0]
+        if query.shape[0] > feature.shape[0]:
+            # 10-crop: each crop row queries its own segment's audio window
+            feature = tile_crop_rows(feature, b, query.shape[0] // feature.shape[0])
+        if spec.attention_type == "mha":
+            seq = self.pe(feature, use_kernels) if spec.use_pe else feature
+            return self.attention_layer(query, seq, use_kernels)
+        return self.attention_layer(query, feature)

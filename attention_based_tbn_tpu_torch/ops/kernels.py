@@ -1,0 +1,255 @@
+"""The attention block's two kernels, each beside its plain PyTorch version.
+
+* ``pe_block`` — concat PE -> 1x1 conv -> GroupNorm on (B, S, C) in one
+  pass (csrc/pe_block.cu; replaces the JAX package's
+  ``ops/pallas_kernels.py:pe_block_pallas``).
+* ``mha`` — single-query multi-head attention with key == value, returning
+  the output and the head-averaged weights (csrc/mha.cu; replaces
+  ``ops/pallas_kernels.py:mha_pallas``).
+
+Dispatch rule of every wrapper: a tensor on the CPU takes the plain version
+(``*_plain``); a CUDA tensor launches the kernel, or raises when the kernel
+cannot take it. Nothing falls back silently. Each wrapper counts its
+launches in ``<wrapper>.launches`` (one per call that reached the card), so
+a run can show that it went through the kernels.
+
+Weights arrive in torch layout ((out, in) matrices, fp32); activations are
+fp32 or bf16. The plain versions compute in fp32 and return the input's
+type, which is what the kernels do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of csrc/*.cu's exported functions: (restype, argtypes).
+_SIGNATURES = {
+    "pe_block": {
+        "pe_block_forward": (
+            _I, [_I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+        ),
+        "pe_block_max_seq": (_I, []),
+        "pe_block_channel_tile": (_I, []),
+        "pe_block_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "mha": {
+        "mha_forward": (_I, [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _P]),
+        "mha_max_heads": (_I, []),
+        "mha_max_seq": (_I, []),
+        "mha_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+_GROUP_CHANNELS = (4, 8, 16, 32, 64)  # channels per group the kernel handles
+
+
+# --------------------------------------------------------------- PE block
+
+
+def pe_block_plain(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
+                   num_groups: int = 64, eps: float = 1e-5):
+    """(B, S, C_in) -> (B, S, C_out): concat the (S, D) PE table, 1x1 conv
+    with ``conv_weight`` (C_out, C_in + D), GroupNorm(num_groups) with a
+    two-pass variance. Mirrors ``pe_block_reference`` of the JAX package."""
+    b, s, _ = x.shape
+    pe = pe_table.float()[None].expand(b, s, pe_table.shape[1])
+    h = torch.cat([x.float(), pe], dim=-1) @ conv_weight.float().T + conv_bias.float()
+    grouped = h.view(b, s, num_groups, -1)
+    mean = grouped.mean(dim=(1, 3), keepdim=True)
+    var = (grouped - mean).square().mean(dim=(1, 3), keepdim=True)
+    normed = ((grouped - mean) * torch.rsqrt(var + eps)).view(b, s, -1)
+    return (normed * gn_scale.float() + gn_bias.float()).to(x.dtype)
+
+
+def pe_block(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
+             num_groups: int = 64, eps: float = 1e-5):
+    """:func:`pe_block_plain` on the CPU; the CUDA kernel on the card."""
+    if x.device.type == "cpu":
+        return pe_block_plain(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
+                              num_groups, eps)
+    _require_cuda(x)
+    lib = _library("pe_block")
+    if x.dim() != 3:
+        raise ValueError(f"pe_block: x must be (B, S, C_in), got {tuple(x.shape)}")
+    b, s, c_in = x.shape
+    c_out = conv_weight.shape[0]
+    d = pe_table.shape[-1]
+    if conv_weight.shape != (c_out, c_in + d):
+        raise ValueError(
+            f"pe_block: conv_weight {tuple(conv_weight.shape)} != ({c_out}, {c_in + d})"
+        )
+    if tuple(pe_table.shape) != (s, d):
+        raise ValueError(f"pe_block: pe_table {tuple(pe_table.shape)} != ({s}, {d})")
+    if not 1 <= s <= lib.pe_block_max_seq():
+        raise ValueError(f"pe_block: sequence {s} outside [1, {lib.pe_block_max_seq()}]")
+    if c_out % lib.pe_block_channel_tile() or c_out % num_groups:
+        raise ValueError(
+            f"pe_block: C_out {c_out} must be a multiple of "
+            f"{lib.pe_block_channel_tile()} and of num_groups {num_groups}"
+        )
+    if c_out // num_groups not in _GROUP_CHANNELS:
+        raise ValueError(
+            f"pe_block: {c_out // num_groups} channels per group; the kernel "
+            f"takes {_GROUP_CHANNELS}"
+        )
+    _check_activation("pe_block", x)
+    for name, t in (("conv_weight", conv_weight), ("conv_bias", conv_bias),
+                    ("gn_scale", gn_scale), ("gn_bias", gn_bias)):
+        _check_param("pe_block", name, t, x.device)
+    if conv_bias.shape != (c_out,) or gn_scale.shape != (c_out,) or gn_bias.shape != (c_out,):
+        raise ValueError("pe_block: conv_bias, gn_scale and gn_bias must be (C_out,)")
+    # The kernel reads the table through its strides (the model passes a
+    # transposed view of its buffer), so it need not be contiguous.
+    if pe_table.device != x.device or pe_table.dtype != torch.float32:
+        raise ValueError(f"pe_block: pe_table must be float32 on {x.device}")
+
+    out = torch.empty_like(x)
+    err = lib.pe_block_forward(
+        _DTYPE_CODES[x.dtype], x.device.index or 0,
+        _ptr(x), _ptr(pe_table), pe_table.stride(0), pe_table.stride(1), _ptr(conv_weight),
+        _ptr(conv_bias), _ptr(gn_scale), _ptr(gn_bias), _ptr(out), b, s, c_in, d, c_out,
+        num_groups, eps, _stream(x),
+    )
+    _raise_on_error("pe_block", lib.pe_block_error_string, err)
+    pe_block.launches += 1
+    return out
+
+
+pe_block.launches = 0
+
+
+# -------------------------------------------------------------------- MHA
+
+
+def mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
+              out_proj_bias, num_heads: int):
+    """Single-query MHA, (B, E) x (B, S, E) -> ((B, E), (B, S) head-averaged
+    weights). ``in_proj_weight`` packs [Wq; Wk; Wv] like torch's
+    MultiheadAttention. Mirrors ``mha_reference`` of the JAX package."""
+    b, s, e = keyval.shape
+    hd = e // num_heads
+    wq, wk, wv = in_proj_weight.float().chunk(3)
+    bq, bk, bv = in_proj_bias.float().chunk(3)
+    kv = keyval.float()
+    q = (query.float() @ wq.T + bq).view(b, num_heads, hd)
+    k = (kv @ wk.T + bk).view(b, s, num_heads, hd)
+    v = (kv @ wv.T + bv).view(b, s, num_heads, hd)
+    logits = torch.einsum("bhd,bshd->bhs", q / math.sqrt(hd), k)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", probs, v).reshape(b, e)
+    out = out @ out_proj_weight.float().T + out_proj_bias.float()
+    return out.to(query.dtype), probs.mean(dim=1).to(query.dtype)
+
+
+def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_bias,
+        num_heads: int):
+    """:func:`mha_plain` on the CPU; the CUDA kernels on the card."""
+    if query.device.type == "cpu":
+        return mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
+                         out_proj_bias, num_heads)
+    _require_cuda(query)
+    lib = _library("mha")
+    if keyval.dim() != 3 or query.dim() != 2:
+        raise ValueError(
+            f"mha: query (B, E) and keyval (B, S, E) expected, got "
+            f"{tuple(query.shape)} and {tuple(keyval.shape)}"
+        )
+    b, s, e = keyval.shape
+    if tuple(query.shape) != (b, e):
+        raise ValueError(f"mha: query {tuple(query.shape)} != ({b}, {e})")
+    if not 1 <= num_heads <= lib.mha_max_heads() or e % num_heads:
+        raise ValueError(f"mha: {num_heads} heads do not divide E={e} (max {lib.mha_max_heads()})")
+    if not 1 <= s <= lib.mha_max_seq():
+        raise ValueError(f"mha: sequence {s} outside [1, {lib.mha_max_seq()}]")
+    _check_activation("mha", query)
+    _check_activation("mha", keyval)
+    if keyval.dtype != query.dtype or keyval.device != query.device:
+        raise ValueError("mha: query and keyval must share dtype and device")
+    shapes = {
+        "in_proj_weight": (in_proj_weight, (3 * e, e)),
+        "in_proj_bias": (in_proj_bias, (3 * e,)),
+        "out_proj_weight": (out_proj_weight, (e, e)),
+        "out_proj_bias": (out_proj_bias, (e,)),
+    }
+    for name, (t, shape) in shapes.items():
+        _check_param("mha", name, t, query.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"mha: {name} {tuple(t.shape)} != {shape}")
+
+    f32 = dict(device=query.device, dtype=torch.float32)
+    q_buf = torch.empty((b, e), **f32)
+    kv_buf = torch.empty((b * s, 2 * e), **f32)
+    att_buf = torch.empty((b, e), **f32)
+    out = torch.empty_like(query)
+    wts = torch.empty((b, s), device=query.device, dtype=query.dtype)
+    err = lib.mha_forward(
+        _DTYPE_CODES[query.dtype], query.device.index or 0,
+        _ptr(query), _ptr(keyval), _ptr(in_proj_weight), _ptr(in_proj_bias),
+        _ptr(out_proj_weight), _ptr(out_proj_bias), _ptr(q_buf), _ptr(kv_buf),
+        _ptr(att_buf), _ptr(out), _ptr(wts), b, s, e, num_heads, _stream(query),
+    )
+    _raise_on_error("mha", lib.mha_error_string, err)
+    mha.launches += 1
+    return out, wts
+
+
+mha.launches = 0
+
+WRAPPERS = {"pe_block": pe_block, "mha": mha}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------- helpers
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}; use a CPU or CUDA tensor")
+
+
+def _check_activation(fn: str, t: torch.Tensor) -> None:
+    if t.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{fn}: dtype {t.dtype} not in {list(_DTYPE_CODES)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: activations must be contiguous")
+
+
+def _check_param(fn: str, name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} on {t.device}, activations on {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on_error(fn: str, error_string, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{fn}: CUDA launch failed ({err}): {error_string(err).decode()}")

@@ -1,0 +1,149 @@
+"""The port's attention-block kernels: plain versions against the JAX
+package's references and its Pallas kernels (interpret mode), the CPU
+dispatch rule of the wrappers, and — on a card only — each CUDA kernel
+against its plain version.
+
+Tolerance: fp32 rtol 1e-4 / atol 1e-4 — the two sides differ only in
+summation order (the JAX package's own Pallas tests use the same bound).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from attention_based_tbn_tpu.models.attention import (
+    positional_encoding_table as jax_positional_encoding_table,
+)
+from attention_based_tbn_tpu.ops.pallas_kernels import (
+    mha_pallas,
+    mha_reference,
+    pe_block_pallas,
+    pe_block_reference,
+)
+from attention_based_tbn_tpu_torch.models.attention import positional_encoding_table
+from attention_based_tbn_tpu_torch.ops import kernels
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse fixture)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+D = 10  # PE channels
+
+
+def _pe_case(b, s, c, seed):
+    rng = np.random.default_rng(seed)
+    return dict(
+        x=rng.standard_normal((b, s, c)).astype(np.float32),
+        table=positional_encoding_table(D, s),
+        kernel=(rng.standard_normal((c + D, c)) * 0.05).astype(np.float32),  # (in, out)
+        bias=(rng.standard_normal(c) * 0.1).astype(np.float32),
+        scale=(rng.random(c) + 0.5).astype(np.float32),
+        gn_bias=(rng.standard_normal(c) * 0.1).astype(np.float32),
+    )
+
+
+def _mha_case(b, s, e, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: (rng.standard_normal(shape) * 0.05).astype(np.float32)  # noqa: E731
+    return dict(
+        query=rng.standard_normal((b, e)).astype(np.float32),
+        keyval=rng.standard_normal((b, s, e)).astype(np.float32),
+        wq=mk(e, e), bq=mk(e), wk=mk(e, e), bk=mk(e), wv=mk(e, e), bv=mk(e),
+        wo=mk(e, e), bo=mk(e),
+    )
+
+
+def _port_pe_args(c):
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    return (t["x"], t["table"], t["kernel"].T.contiguous(), t["bias"], t["scale"], t["gn_bias"])
+
+
+def _port_mha_args(c):
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    in_w = torch.cat([t["wq"].T, t["wk"].T, t["wv"].T]).contiguous()
+    in_b = torch.cat([t["bq"], t["bk"], t["bv"]])
+    return t["query"], t["keyval"], in_w, in_b, t["wo"].T.contiguous(), t["bo"]
+
+
+def test_positional_encoding_table_matches_jax():
+    for dim, length in ((10, 13), (10, 8), (6, 25)):
+        np.testing.assert_array_equal(
+            positional_encoding_table(dim, length), jax_positional_encoding_table(dim, length)
+        )
+
+
+@pytest.mark.parametrize("b,s,c,groups", [(3, 13, 256, 64), (5, 8, 128, 32), (1, 13, 192, 64)])
+def test_pe_block_plain_matches_jax(b, s, c, groups):
+    case = _pe_case(b, s, c, seed=b + s)
+    j = {k: jnp.asarray(v) for k, v in case.items()}
+    args = (j["x"], j["table"], j["kernel"], j["bias"], j["scale"], j["gn_bias"])
+    ref = np.asarray(pe_block_reference(*args, num_groups=groups))
+    pallas = np.asarray(pe_block_pallas(*args, num_groups=groups, interpret=True))
+    ours = kernels.pe_block_plain(*_port_pe_args(case), num_groups=groups).numpy()
+    np.testing.assert_allclose(ours, ref, **TOL)
+    np.testing.assert_allclose(ours, pallas, **TOL)
+
+
+@pytest.mark.parametrize("b,s,e,heads", [(3, 13, 128, 4), (5, 8, 256, 4), (7, 13, 256, 8)])
+def test_mha_plain_matches_jax(b, s, e, heads):
+    case = _mha_case(b, s, e, seed=b * s)
+    j = {k: jnp.asarray(v) for k, v in case.items()}
+    ref_out, ref_wts = mha_reference(num_heads=heads, **j)
+    pal_out, pal_wts = mha_pallas(num_heads=heads, interpret=True, **j)
+    out, wts = kernels.mha_plain(*_port_mha_args(case), num_heads=heads)
+    for want_out, want_wts in ((ref_out, ref_wts), (pal_out, pal_wts)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **TOL)
+        np.testing.assert_allclose(wts.numpy(), np.asarray(want_wts), rtol=1e-4, atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU a wrapper is exactly its plain version and counts no
+    launch; it does so because the tensors lie on the CPU."""
+    kernels.reset_launch_counts()
+    pe = _port_pe_args(_pe_case(3, 13, 128, seed=1))
+    torch.testing.assert_close(kernels.pe_block(*pe, num_groups=64),
+                               kernels.pe_block_plain(*pe, num_groups=64), rtol=0, atol=0)
+    mha = _port_mha_args(_mha_case(3, 13, 128, seed=2))
+    for got, want in zip(kernels.mha(*mha, num_heads=4), kernels.mha_plain(*mha, num_heads=4)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert kernels.pe_block.launches == 0 and kernels.mha.launches == 0
+
+
+def test_plain_versions_keep_the_input_dtype():
+    pe = list(_port_pe_args(_pe_case(2, 8, 128, seed=3)))
+    pe[0] = pe[0].to(torch.bfloat16)
+    assert kernels.pe_block_plain(*pe, num_groups=32).dtype == torch.bfloat16
+    mha = list(_port_mha_args(_mha_case(2, 8, 128, seed=4)))
+    mha[0], mha[1] = mha[0].to(torch.bfloat16), mha[1].to(torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in kernels.mha_plain(*mha, num_heads=4))
+
+
+def test_wrappers_refuse_other_devices():
+    """Neither CPU nor CUDA: no kernel and no silent plain fallback."""
+    pe = _port_pe_args(_pe_case(2, 8, 128, seed=5))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kernels.pe_block(pe[0].to("meta"), *pe[1:], num_groups=32)
+    mha = _port_mha_args(_mha_case(2, 8, 128, seed=6))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kernels.mha(mha[0].to("meta"), mha[1].to("meta"), *mha[2:], num_heads=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_cuda_kernels_match_plain_on_the_card(dtype, atol):
+    """Flagship shapes (B*N 25, S 13, E 1024). |err| <= atol + rtol*max|plain|
+    with rtol = atol: fp32 summation order, plus bf16 output rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    pe = [t.cuda() for t in _port_pe_args(_pe_case(25, 13, 1024, seed=7))]
+    pe[0] = pe[0].to(dtype)
+    mha = [t.cuda() for t in _port_mha_args(_mha_case(25, 13, 1024, seed=8))]
+    mha[0], mha[1] = mha[0].to(dtype), mha[1].to(dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pairs = [(kernels.pe_block(*pe), kernels.pe_block_plain(*pe))]
+    pairs += list(zip(kernels.mha(*mha, num_heads=4), kernels.mha_plain(*mha, num_heads=4)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.dtype == want.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= atol * (1 + want.float().abs().max().item())
