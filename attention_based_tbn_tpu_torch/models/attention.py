@@ -1,5 +1,5 @@
-"""Audio attention at eval: the RGB segment feature queries the audio
-feature's time axis.
+"""Audio attention: the RGB segment feature queries the audio feature's
+time axis.
 
 Port of the JAX package's ``models/attention.py`` (reference
 core/models/attention.py). Layouts are batch-first: features (B, C), audio
@@ -8,9 +8,15 @@ dict (``pe.0.pe``, ``pe.1.weight``, ``pe.2.weight``,
 ``attention_layer.attention_layer.in_proj_weight``,
 ``attention_layer.seq.0.weight``, ``attention_layer.prototype_wts``).
 
-With ``use_kernels`` the PE block and the MHA go through
+With ``use_kernels`` the eval PE block and MHA go through
 ``ops.kernels.pe_block`` / ``ops.kernels.mha``: the CUDA kernels on the card,
-their plain versions on the CPU. Without it they call the plain versions.
+their plain versions on the CPU. Without it, and always in training (the
+kernels are inference-only, as the Pallas ones are: attention.py:98-104 and
+:163-174 of the JAX package), they run the plain compositions, through
+which autograd differentiates. Training adds dropout on the MHA's attention
+probabilities and the straight-through gumbel-softmax of UniModal /
+Prototype attention; all noise comes from the ``torch.Generator`` the
+caller passes.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 
 from ..data.priors import gaussian_kernel
 from ..ops import kernels
-from .layers import lecun_normal_, linear, reset_linear_
+from .layers import dropout, lecun_normal_, linear, reset_linear_
 
 PE_CHANNELS = 10  # reference model.py:64 — PositionalEncoding(10, ...)
 
@@ -73,7 +79,7 @@ class PositionalEncoding(nn.Sequential):
         """x (B, S, C) -> (B, S, out) in x's dtype."""
         conv, norm = self[1], self[2]
         table = self[0].pe[0, :, : x.shape[1]].T  # (S, dim)
-        fn = kernels.pe_block if use_kernels else kernels.pe_block_plain
+        fn = kernels.pe_block if use_kernels and not self.training else kernels.pe_block_plain
         return fn(x, table, conv.weight.view(conv.weight.shape[0], -1), conv.bias,
                   norm.weight, norm.bias, num_groups=norm.num_groups, eps=norm.eps)
 
@@ -82,9 +88,10 @@ class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed in_proj, out_proj)
     with the single-query, key-is-value forward the TBN uses."""
 
-    def __init__(self, embed_dim: int = 1024, num_heads: int = 4):
+    def __init__(self, embed_dim: int = 1024, num_heads: int = 4, dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -96,13 +103,20 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias.zero_()
         reset_linear_(self.out_proj, generator)
 
-    def forward(self, query: torch.Tensor, keyval: torch.Tensor,
-                use_kernels: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, query: torch.Tensor, keyval: torch.Tensor, use_kernels: bool,
+                generator: torch.Generator = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """query (B, E), keyval (B, S, E) -> (B, E) output and (B, 1, S)
-        head-averaged weights, both in the query's dtype."""
-        fn = kernels.mha if use_kernels else kernels.mha_plain
-        out, wts = fn(query, keyval, self.in_proj_weight, self.in_proj_bias,
-                      self.out_proj.weight, self.out_proj.bias, self.num_heads)
+        head-averaged weights, both in the query's dtype. In training the
+        attention probabilities are dropped out with ``generator``'s noise."""
+        args = (query, keyval, self.in_proj_weight, self.in_proj_bias,
+                self.out_proj.weight, self.out_proj.bias, self.num_heads)
+        if self.training:
+            out, wts = kernels.mha_plain(
+                *args, drop=lambda p: dropout(p, self.dropout_rate, generator))
+        elif use_kernels:
+            out, wts = kernels.mha(*args)
+        else:
+            out, wts = kernels.mha_plain(*args)
         return out, wts[:, None, :]
 
 
@@ -110,24 +124,38 @@ class MHAttention(nn.Module):
     """The reference's attention wrapper, holding the MHA as
     ``attention_layer`` (state-dict ``attention_layer.attention_layer.*``)."""
 
-    def __init__(self, embed_dim: int = 1024, num_heads: int = 4):
+    def __init__(self, embed_dim: int = 1024, num_heads: int = 4, dropout_rate: float = 0.0):
         super().__init__()
-        self.attention_layer = MultiheadAttention(embed_dim, num_heads)
+        self.attention_layer = MultiheadAttention(embed_dim, num_heads, dropout_rate)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.attention_layer.reset_parameters(generator)
 
-    def forward(self, query, keyval, use_kernels: bool):
-        return self.attention_layer(query, keyval, use_kernels)
+    def forward(self, query, keyval, use_kernels: bool, generator: torch.Generator = None):
+        return self.attention_layer(query, keyval, use_kernels, generator)
+
+
+def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """F.gumbel_softmax(hard=True, tau=1) with the noise drawn from
+    ``generator``: the softmax of logits + Gumbel(0, 1) in float32, returned
+    as the one-hot of its argmax forward with the softmax's gradient
+    backward (straight-through), in the logits' dtype."""
+    gumbels = -torch.empty(logits.shape, device=logits.device).exponential_(
+        generator=generator).log()
+    y = torch.softmax(logits.float() + gumbels, dim=-1)
+    y_hard = F.one_hot(y.argmax(dim=-1), logits.shape[-1]).to(y.dtype)
+    return (y_hard + y - y.detach()).to(logits.dtype)
 
 
 class UniModalAttention(nn.Module):
-    """MLP(rgb) -> softmax over the audio time axis -> weighted sum (eval:
-    plain softmax, no gumbel)."""
+    """MLP(rgb) -> distribution over the audio time axis -> weighted sum: a
+    softmax at eval, the hard gumbel-softmax in training when
+    ``use_gumbel``."""
 
     def __init__(self, win_size: int, in_features: int = 1024, hidden_size: int = 256,
-                 n_out: int = None):
+                 n_out: int = None, use_gumbel: bool = True):
         super().__init__()
+        self.use_gumbel = use_gumbel
         self.seq = nn.Sequential(
             nn.Linear(in_features, hidden_size), nn.ReLU(),
             nn.Linear(hidden_size, win_size if n_out is None else n_out),
@@ -137,28 +165,33 @@ class UniModalAttention(nn.Module):
         reset_linear_(self.seq[0], generator)
         reset_linear_(self.seq[2], generator)
 
-    def _mix(self, rgb_feature: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def _mix(self, rgb_feature: torch.Tensor, dtype: torch.dtype,
+             generator: torch.Generator) -> torch.Tensor:
         y = F.relu(linear(rgb_feature, self.seq[0], dtype))
         logits = linear(y, self.seq[2], dtype)
+        if self.training and self.use_gumbel:
+            return gumbel_softmax(logits, generator)
         return torch.softmax(logits.float(), dim=-1).to(dtype)
 
-    def forward(self, rgb_feature, audio_sequence):
+    def forward(self, rgb_feature, audio_sequence, generator: torch.Generator = None):
         """(B, C), (B, S, C) -> (B, C) attended feature, (B, S) weights."""
         dtype = audio_sequence.dtype
-        weights = self._mix(rgb_feature, dtype)
+        weights = self._mix(rgb_feature, dtype, generator)
         return _weighted_sum(audio_sequence, weights), weights
 
 
 class PrototypeAttention(UniModalAttention):
     """MLP(rgb) mixes 3 Gaussian prototype curves over the time axis."""
 
-    def __init__(self, win_size: int, in_features: int = 1024, hidden_size: int = 256):
-        super().__init__(win_size, in_features, hidden_size, n_out=3)
+    def __init__(self, win_size: int, in_features: int = 1024, hidden_size: int = 256,
+                 use_gumbel: bool = True):
+        super().__init__(win_size, in_features, hidden_size, n_out=3, use_gumbel=use_gumbel)
         self.register_buffer("prototype_wts", torch.from_numpy(prototypes(win_size)))
 
-    def forward(self, rgb_feature, audio_sequence):
+    def forward(self, rgb_feature, audio_sequence, generator: torch.Generator = None):
         dtype = audio_sequence.dtype
-        weights = torch.matmul(self._mix(rgb_feature, dtype), self.prototype_wts.to(dtype))
+        mix = self._mix(rgb_feature, dtype, generator)
+        weights = torch.matmul(mix, self.prototype_wts.to(dtype))
         return _weighted_sum(audio_sequence, weights), weights
 
 

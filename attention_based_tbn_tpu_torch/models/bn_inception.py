@@ -1,4 +1,4 @@
-"""BN-Inception feature tower (eval), NCHW.
+"""BN-Inception feature tower, NCHW.
 
 Port of the JAX package's ``models/bn_inception.py``: the public
 Inception-BN graph the reference takes from ``pretrainedmodels``
@@ -7,7 +7,19 @@ Inception-BN graph the reference takes from ``pretrainedmodels``
     inception 3a 3b | 3c(/2) | 4a 4b 4c 4d | 4e(/2) | 5a 5b -> global avg pool
 
 with torch ``ceil_mode`` pools. Every conv is followed by BatchNorm and
-ReLU; at eval the BatchNorm folds into the conv (layers.FoldCache).
+ReLU. At eval the BatchNorm folds into the conv (layers.FoldCache); in
+training (``.train()``) it runs on live batch statistics in float32 and
+updates the running statistics (layers.batch_norm_train), with a per-row
+mask that keeps a loader's pad rows out of them. The conv bias cancels
+through live BatchNorm, so in training the conv runs without it and the
+running mean records it, as the JAX package does (its bias gradient is
+then None rather than zero: the optimizer reads it as zero). Statistics
+keep updating under ``partialbn``, which only freezes affine parameters in
+the optimizer.
+
+``pool_impl`` (``tpu.pool_impl``) goes to every max pool; with "pallas" the
+four 3x3 / stride-2 ceil pools (stem pool1 and pool2, the passthrough of
+inception 3c and 4e) run the hand-written kernel on a CUDA tensor.
 
 Modules are flat attributes named as in the reference state dict
 (``conv1_7x7_s2`` + ``conv1_7x7_s2_bn``, ``inception_3a_1x1`` + ``..._bn``),
@@ -31,7 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pooling import avg_pool2d, global_avg_pool, max_pool2d
-from .layers import BN_EPSILON, FoldCache, variance_scaling_
+from .layers import BN_EPSILON, FoldCache, batch_norm_train, variance_scaling_
 
 
 @dataclass(frozen=True)
@@ -67,13 +79,15 @@ FEATURE_SIZE = 1024
 
 
 class BNInception(nn.Module):
-    """BN-Inception tower; ``forward`` is the eval graph."""
+    """BN-Inception tower; ``forward`` runs the eval graph or, in training
+    mode, the train graph."""
 
     def __init__(self, in_channels: int, freq_pool_only: bool = False,
-                 audio_stem: bool = False):
+                 audio_stem: bool = False, pool_impl: str = "reduce_window"):
         super().__init__()
         self.freq_pool_only = freq_pool_only
         self.audio_stem = audio_stem
+        self.pool_impl = pool_impl
         self._folded = FoldCache()
         if audio_stem:
             self._conv_bn("conv1_1x3_s2", in_channels, 32, (3, 1), 2, (1, 0))
@@ -110,46 +124,62 @@ class BNInception(nn.Module):
             elif isinstance(module, nn.BatchNorm2d):
                 module.reset_parameters()
 
-    def _cbr(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """Conv (BN folded) + ReLU, computed in x's dtype."""
-        conv = getattr(self, name)
-        w, b = self._folded.get(name, conv, getattr(self, f"{name}_bn"), x.dtype)
+    def _cbr(self, name: str, x: torch.Tensor,
+             row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Conv + BN + ReLU, computed in x's dtype: BN folded into the conv at
+        eval, live float32 BN in training."""
+        conv, bn = getattr(self, name), getattr(self, f"{name}_bn")
+        if self.training:
+            y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+            return F.relu(batch_norm_train(y, bn, conv.bias, row_mask).to(x.dtype))
+        w, b = self._folded.get(name, conv, bn, x.dtype)
+        # in place: the conv's backward needs its input and weight, not its output
         return F.relu(F.conv2d(x, w, b, conv.stride, conv.padding), inplace=True)
 
-    def _block(self, name: str, s: InceptionSpec, x: torch.Tensor) -> torch.Tensor:
+    def _max_pool(self, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+        return max_pool2d(x, 3, stride, padding, ceil_mode=True, impl=self.pool_impl)
+
+    def _block(self, name: str, s: InceptionSpec, x: torch.Tensor,
+               row_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        def cbr(cell, inp):
+            return self._cbr(f"{name}_{cell}", inp, row_mask)
+
         branches = []
         if s.b1x1:
-            branches.append(self._cbr(f"{name}_1x1", x))
-        branches.append(self._cbr(f"{name}_3x3", self._cbr(f"{name}_3x3_reduce", x)))
-        d = self._cbr(f"{name}_double_3x3_1", self._cbr(f"{name}_double_3x3_reduce", x))
-        branches.append(self._cbr(f"{name}_double_3x3_2", d))
+            branches.append(cbr("1x1", x))
+        branches.append(cbr("3x3", cbr("3x3_reduce", x)))
+        branches.append(cbr("double_3x3_2", cbr("double_3x3_1", cbr("double_3x3_reduce", x))))
         if s.proj:
             if s.pool == "avg":
                 pooled = avg_pool2d(x, 3, 1, 1, ceil_mode=True, count_include_pad=True)
             else:
-                pooled = max_pool2d(x, 3, 1, 1, ceil_mode=True)
-            branches.append(self._cbr(f"{name}_pool_proj", pooled))
+                pooled = self._max_pool(x, 1, 1)
+            branches.append(cbr("pool_proj", pooled))
         else:
-            branches.append(max_pool2d(x, 3, s.stride, 0, ceil_mode=True))
+            branches.append(self._max_pool(x, s.stride, 0))
         return torch.cat(branches, dim=1)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 input_scale: Optional[torch.Tensor] = None,
-                input_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                input_offset: Optional[torch.Tensor] = None,
+                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """NCHW input -> features in ``dtype``.
 
         (input_scale, input_offset): per-channel affine that normalizes a raw
-        uint8 input, applied in ``dtype`` before the stem's zero padding."""
+        uint8 input, applied in ``dtype`` before the stem's zero padding.
+        ``row_mask``: 0/1 per row, training only; zero rows are left out of
+        every BatchNorm statistic."""
         x = x.to(dtype)
         if input_scale is not None:
             x = x * input_scale.to(dtype)[:, None, None] + input_offset.to(dtype)[:, None, None]
         if self.audio_stem:
-            y = torch.cat([self._cbr("conv1_1x3_s2", x), self._cbr("conv1_3x1_s2", x)], dim=1)
+            y = torch.cat([self._cbr("conv1_1x3_s2", x, row_mask),
+                           self._cbr("conv1_3x1_s2", x, row_mask)], dim=1)
         else:
-            y = self._cbr("conv1_7x7_s2", x)
-        y = max_pool2d(y, 3, 2, 0, ceil_mode=True)
-        y = self._cbr("conv2_3x3", self._cbr("conv2_3x3_reduce", y))
-        y = max_pool2d(y, 3, 2, 0, ceil_mode=True)
+            y = self._cbr("conv1_7x7_s2", x, row_mask)
+        y = self._max_pool(y, 2, 0)
+        y = self._cbr("conv2_3x3", self._cbr("conv2_3x3_reduce", y, row_mask), row_mask)
+        y = self._max_pool(y, 2, 0)
         for name, s in BN_INCEPTION_BLOCKS:
-            y = self._block(name, s, y)
+            y = self._block(name, s, y, row_mask)
         return global_avg_pool(y, freq_only=self.freq_pool_only)

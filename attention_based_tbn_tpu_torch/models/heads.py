@@ -1,8 +1,8 @@
-"""Fusion and the multi-head classifier at eval (reference
+"""Fusion and the multi-head classifier (reference
 core/models/model.py:337-387; JAX package ``models/heads.py``).
 
-* Fusion: Linear(sum of tower features -> 512) + ReLU (the reference's
-  Dropout after it is the identity at eval), weights N(0, 1e-3), zero bias;
+* Fusion: Linear(sum of tower features -> 512) + ReLU + Dropout (training
+  only, noise from the caller's generator), weights N(0, 1e-3), zero bias;
 * Classifier: one Linear head per class type (verb / noun), same init.
 """
 
@@ -14,14 +14,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import linear, reset_linear_
+from .layers import dropout, linear, reset_linear_
 
 HEAD_INIT_STD = 1e-3
 
 
 class Fusion(nn.Module):
-    def __init__(self, in_features: int, out_size: int = 512):
+    def __init__(self, in_features: int, out_size: int = 512, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         # reference layout: fusion_layer = Sequential(Linear, ReLU, Dropout);
         # only the Linear holds parameters
         self.fusion_layer = nn.Sequential(nn.Linear(in_features, out_size))
@@ -29,8 +30,12 @@ class Fusion(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_linear_(self.fusion_layer[0], generator, std=HEAD_INIT_STD)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.relu(linear(x, self.fusion_layer[0], dtype))
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                generator: torch.Generator = None) -> torch.Tensor:
+        y = F.relu(linear(x, self.fusion_layer[0], dtype))
+        if self.training:
+            y = dropout(y, self.dropout_rate, generator)
+        return y
 
 
 class Classifier(nn.ModuleDict):

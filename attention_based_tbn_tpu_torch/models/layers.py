@@ -1,9 +1,11 @@
-"""Inference building blocks with the JAX package's numerics.
+"""Building blocks with the JAX package's numerics.
 
-Port of the math of the JAX package's ``models/layers.py`` at eval:
-convolutions with bias, BatchNorm on running statistics (eps 1e-5) folded
-into the preceding convolution, Linear layers computed in the compute dtype,
-and the seeded initializers. Parameters stay float32 nn.Module parameters
+Port of the math of the JAX package's ``models/layers.py``: convolutions
+with bias; BatchNorm on running statistics (eps 1e-5) folded into the
+preceding convolution at eval, and with live batch statistics, pad-row
+masks and the running-stat update in training (``batch_norm_train``);
+Linear layers computed in the compute dtype; dropout from an explicit
+generator; and the seeded initializers. Parameters stay float32 nn.Module parameters
 in the reference PyTorch layout (OIHW convs, (out, in) linears); compute
 casts them to the compute dtype, as the JAX package does.
 
@@ -22,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPSILON = 1e-5
+BN_MOMENTUM = 0.1
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # Standard deviation of a unit normal truncated to [-2, 2]; flax's
@@ -65,6 +68,57 @@ class FoldCache:
             hit = (key,) + fold_conv_bn(conv, bn, dtype)
             self._entries[name] = hit
         return hit[1], hit[2]
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mean_offset: torch.Tensor = None,
+                     row_mask: torch.Tensor = None) -> torch.Tensor:
+    """BatchNorm with live batch statistics over (N, H, W) of NCHW ``x``,
+    the JAX package's TorchBatchNorm in training (layers.py:377-415).
+    Returns float32.
+
+    * single-pass moments in float32, var = E[x^2] - mean^2 clamped at 0;
+    * normalizes with the biased variance; the running statistics take the
+      unbiased one, ``(1 - m) * running + m * batch`` with m = 0.1, updated
+      in place (no gradient);
+    * ``mean_offset``: a per-channel constant the caller left out of x (the
+      preceding convolution's bias, which cancels through live BN); only
+      the running mean records it;
+    * ``row_mask``: 0/1 per row of N; masked rows (a loader's pad rows) are
+      left out of the statistics, and the count is the masked count.
+      ``nn.BatchNorm2d`` has no row mask, hence this function.
+    """
+    xf = x.float()
+    axes = (0, 2, 3)
+    if row_mask is None:
+        mean = xf.mean(dim=axes)
+        sq = xf.square().mean(dim=axes)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        correction = n / max(n - 1, 1)
+    else:
+        w = row_mask.float().view(-1, 1, 1, 1)
+        count = row_mask.float().sum().clamp_min(1.0) * (x.shape[2] * x.shape[3])
+        mean = (xf * w).sum(dim=axes) / count
+        sq = (xf.square() * w).sum(dim=axes) / count
+        correction = count / (count - 1.0).clamp_min(1.0)
+    var = (sq - mean.square()).clamp_min(0.0)
+    with torch.no_grad():
+        recorded = mean if mean_offset is None else mean + mean_offset
+        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * recorded)
+        bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var * correction)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    return (xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with the noise drawn from ``generator`` (flax
+    ``nn.Dropout``: keep with probability 1 - rate, scale kept values by
+    1 / (1 - rate))."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The Temporal Binding Network's eval forward in PyTorch.
+"""The Temporal Binding Network's forward in PyTorch, eval and training.
 
 Port of the JAX package's ``models/tbn.py`` (reference
 core/models/model.py:205-262):
@@ -11,13 +11,17 @@ core/models/model.py:205-262):
 * features concat -> Fusion(512) when multimodal -> per-class heads ->
   segment consensus = mean of the logits over segments.
 
+In training (``.train()``) the towers run live BatchNorm, the attention
+block its plain compositions with dropout / gumbel noise, Fusion its
+dropout, and the audio feature its batch-wide dropout; every draw comes
+from the ``torch.Generator`` passed to ``forward``. ``true_batch`` (the
+true batch size of a padded batch) becomes a per-row mask that keeps pad
+rows out of every BatchNorm statistic.
+
 Inputs keep the JAX package's layouts: RGB (B, N, H, W, 3) and Flow
 (B, N, H, W, 2*win), uint8 or float; Audio waveform (B, N, L) or
 spectrogram (B, N, F, T, 1); fixed prior weights (B, N, W, 1). Inside the
 towers activations are NCHW.
-
-Training-only branches (audio dropout, live BatchNorm, gumbel) are not
-ported yet: the forward refuses ``train()`` mode.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from ..data.priors import attention_window_size
+from ..ops.pooling import POOL_IMPLS
 from ..ops.spectrogram import spectrogram
 from ..utils.device import tf32_scope
 from .attention import MHAttention, PositionalEncoding, PrototypeAttention, UniModalAttention
@@ -57,7 +62,7 @@ def tile_crop_rows(feature: torch.Tensor, b: int, reps: int) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class TBNSpec:
-    """Model configuration the eval forward reads from the config tree."""
+    """Model configuration the forward reads from the config tree."""
 
     modality: Tuple[str, ...] = ("RGB", "Flow", "Audio")
     arch: str = "bninception"
@@ -66,8 +71,13 @@ class TBNSpec:
     attention_type: str = "mha"
     use_pe: bool = True
     use_fixed: bool = False
+    use_gumbel: bool = True
     attn_heads: int = 4
+    attn_dropout: float = 0.5
     attn_win: int = 13
+    # the reference's inverted polarity: uniform() > audio_dropout DROPS
+    audio_dropout: float = 0.0
+    fusion_dropout: float = 0.5
     # Modalities whose tower uses the two-branch (3,1)/(1,3) audio stem.
     audio_stem: Tuple[str, ...] = ()
     flow_win_length: int = 5
@@ -76,6 +86,9 @@ class TBNSpec:
     compute_dtype: str = "float32"
     # Run the hand-written kernels (tpu.use_pallas).
     use_pallas: bool = False
+    # Max-pool lowering (tpu.pool_impl, ops/pooling.POOL_IMPLS): "pallas"
+    # runs the towers' stride-2 ceil pools on the hand-written kernel.
+    pool_impl: str = "reduce_window"
     # Average features before the heads instead of logits after them (same
     # math: consensus commutes with the linear heads).
     fast_consensus: bool = False
@@ -96,8 +109,12 @@ class TBNSpec:
             attention_type=att.type,
             use_pe=bool(att.use_pe),
             use_fixed=bool(att.use_fixed),
+            use_gumbel=bool(att.use_gumbel),
             attn_heads=int(att.attn_heads),
+            attn_dropout=float(att.attn_dropout),
             attn_win=attention_window_size(cfg.data.audio.audio_length),
+            audio_dropout=float(cfg.data.audio.dropout),
+            fusion_dropout=float(cfg.model.fusion_dropout),
             audio_stem=("Audio",) if cfg.get_path("model.bninception.audio_stem", False) else (),
             rgb_mean=tuple(cfg.data.rgb.mean),
             rgb_std=tuple(cfg.data.rgb.std),
@@ -108,6 +125,7 @@ class TBNSpec:
             sampling_rate=int(cfg.data.audio.sampling_rate),
             compute_dtype=cfg.get_path("tpu.compute_dtype", "float32") or "float32",
             use_pallas=bool(cfg.get_path("tpu.use_pallas", False)),
+            pool_impl=str(cfg.get_path("tpu.pool_impl", "reduce_window") or "reduce_window"),
             fast_consensus=bool(cfg.get_path("tpu.fast_consensus", False)),
         )
 
@@ -137,11 +155,14 @@ class TBNSpec:
             )
         if self.attention_enable and self.attention_type not in ("mha", "unimodal", "proto"):
             raise ValueError(f"Unknown attention type {self.attention_type!r}")
+        if self.pool_impl not in POOL_IMPLS:
+            # a misspelt tpu.pool_impl must not fall through to the plain pool
+            raise ValueError(f"Unknown pool_impl {self.pool_impl!r}; expected one of {POOL_IMPLS}")
         compute_dtype(self.compute_dtype)
 
 
 class TBNModel(nn.Module):
-    """Eval-mode TBN; module names follow the reference state dict."""
+    """The TBN; module names follow the reference state dict."""
 
     def __init__(self, spec: TBNSpec):
         super().__init__()
@@ -153,19 +174,22 @@ class TBNModel(nn.Module):
                 in_channels[m],
                 freq_pool_only=(m == "Audio" and spec.audio_attends),
                 audio_stem=(m in spec.audio_stem),
+                pool_impl=spec.pool_impl,
             ))
         if spec.learned_attention:
             if spec.attention_type == "mha":
                 if spec.use_pe:
                     self.pe = PositionalEncoding(max_len=spec.attn_win)
-                self.attention_layer = MHAttention(FEATURE_SIZE, spec.attn_heads)
+                self.attention_layer = MHAttention(FEATURE_SIZE, spec.attn_heads,
+                                                   spec.attn_dropout)
             elif spec.attention_type == "unimodal":
-                self.attention_layer = UniModalAttention(spec.attn_win)
+                self.attention_layer = UniModalAttention(spec.attn_win, use_gumbel=spec.use_gumbel)
             else:
-                self.attention_layer = PrototypeAttention(spec.attn_win)
+                self.attention_layer = PrototypeAttention(spec.attn_win,
+                                                          use_gumbel=spec.use_gumbel)
         n_features = FEATURE_SIZE * len(spec.modality)
         if spec.multimodal:
-            self.fusion = Fusion(n_features, 512)
+            self.fusion = Fusion(n_features, 512, spec.fusion_dropout)
             n_features = 512
         self.classifier = Classifier(n_features, dict(spec.num_classes))
         # uint8 -> (v/255 - mean)/std == v*scale + offset, per channel;
@@ -184,13 +208,20 @@ class TBNModel(nn.Module):
         for module in self.children():
             module.reset_parameters(generator)
 
-    def forward(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise RuntimeError("only the eval forward is ported; call .eval() first")
-        with tf32_scope(self.spec.compute_dtype):
-            return self._forward(batch)
+    def forward(self, batch: Mapping[str, torch.Tensor], true_batch: Optional[int] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``batch`` in the layouts of the module docstring -> logits per
+        class type (and ``weights`` with learned attention).
 
-    def _forward(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        Training only: ``true_batch``, the true batch size when rows past it
+        are padding (None: every row is real); ``generator``, the source of
+        every dropout and gumbel draw, on the model's device (required)."""
+        if self.training and generator is None:
+            raise ValueError("the training forward needs a torch.Generator for its noise")
+        with tf32_scope(self.spec.compute_dtype):
+            return self._forward(batch, true_batch, generator)
+
+    def _forward(self, batch, true_batch, generator) -> Dict[str, torch.Tensor]:
         spec = self.spec
         dtype = compute_dtype(spec.compute_dtype)
         use_kernels = spec.use_pallas
@@ -207,9 +238,21 @@ class TBNModel(nn.Module):
             scale = offset = None
             if m in ("RGB", "Flow") and x.dtype == torch.uint8:
                 scale, offset = getattr(self, f"_{m}_scale"), getattr(self, f"_{m}_offset")
-            feature = getattr(self, f"Base_{m}")(x, dtype, scale, offset)
+            row_mask = None
+            if self.training and true_batch is not None:
+                # 0/1 per folded (sample, segment) row; rows are batch-major
+                row_mask = (torch.arange(b, device=x.device) < true_batch).float()
+                row_mask = row_mask.repeat_interleave(x.shape[0] // b)
+            feature = getattr(self, f"Base_{m}")(x, dtype, scale, offset, row_mask)
             if m == "Audio":
-                feature, att_wts = self._attend(batch, features, feature, b, use_kernels)
+                feature, att_wts = self._attend(batch, features, feature, b, use_kernels,
+                                                generator)
+                if self.training and spec.multimodal and spec.audio_dropout > 0:
+                    # one draw per step zeroes the whole audio feature; the
+                    # reference's polarity (model.py:216-222): u > p DROPS
+                    u = torch.rand((), generator=generator, device=feature.device)
+                    feature = torch.where(u > spec.audio_dropout, torch.zeros_like(feature),
+                                          feature)
                 if features and features[0].shape[0] > feature.shape[0]:
                     feature = tile_crop_rows(feature, b, features[0].shape[0] // feature.shape[0])
             features.append(feature)
@@ -217,7 +260,7 @@ class TBNModel(nn.Module):
         n_consensus = features[0].shape[0] // b
         fused = torch.cat(features, dim=-1)
         if spec.multimodal:
-            fused = self.fusion(fused, dtype)
+            fused = self.fusion(fused, dtype, generator)
         if spec.fast_consensus:
             pooled = fused.reshape(b, n_consensus, -1).float().mean(dim=1).to(dtype)
             out = {k: v.float() for k, v in self.classifier(pooled, dtype).items()}
@@ -230,8 +273,8 @@ class TBNModel(nn.Module):
             out["weights"] = att_wts
         return out
 
-    def _attend(self, batch, features, feature, b: int,
-                use_kernels: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _attend(self, batch, features, feature, b: int, use_kernels: bool,
+                generator) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Audio post-tower path: (feature (B*N, C), weights or None)."""
         spec = self.spec
         if not spec.attention_enable:
@@ -247,5 +290,5 @@ class TBNModel(nn.Module):
             feature = tile_crop_rows(feature, b, query.shape[0] // feature.shape[0])
         if spec.attention_type == "mha":
             seq = self.pe(feature, use_kernels) if spec.use_pe else feature
-            return self.attention_layer(query, seq, use_kernels)
-        return self.attention_layer(query, feature)
+            return self.attention_layer(query, seq, use_kernels, generator)
+        return self.attention_layer(query, feature, generator)

@@ -1,4 +1,4 @@
-"""The attention block's two kernels, each beside its plain PyTorch version.
+"""The port's hand-written kernels, each beside its plain PyTorch version.
 
 * ``pe_block`` — concat PE -> 1x1 conv -> GroupNorm on (B, S, C) in one
   pass (csrc/pe_block.cu; replaces the JAX package's
@@ -6,6 +6,10 @@
 * ``mha`` — single-query multi-head attention with key == value, returning
   the output and the head-averaged weights (csrc/mha.cu; replaces
   ``ops/pallas_kernels.py:mha_pallas``).
+* ``ceil_max_pool2d`` — the towers' 3x3 / stride-2 / pad-0 ceil-mode max
+  pool on NCHW or channels-last input (csrc/max_pool.cu; replaces
+  ``ops/pallas_pool.py:ceil_max_pool2d_pallas``), differentiable through
+  the plain pool's gradient.
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain version
 (``*_plain``); a CUDA tensor launches the kernel, or raises when the kernel
@@ -24,6 +28,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -44,6 +49,10 @@ _SIGNATURES = {
         "mha_max_heads": (_I, []),
         "mha_max_seq": (_I, []),
         "mha_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "max_pool": {
+        "max_pool_forward": (_I, [_I, _I, _P, _P] + [_I] * 7 + [_P]),
+        "max_pool_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 _GROUP_CHANNELS = (4, 8, 16, 32, 64)  # channels per group the kernel handles
@@ -128,10 +137,15 @@ pe_block.launches = 0
 
 
 def mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
-              out_proj_bias, num_heads: int):
+              out_proj_bias, num_heads: int, drop=None):
     """Single-query MHA, (B, E) x (B, S, E) -> ((B, E), (B, S) head-averaged
     weights). ``in_proj_weight`` packs [Wq; Wk; Wv] like torch's
-    MultiheadAttention. Mirrors ``mha_reference`` of the JAX package."""
+    MultiheadAttention. Mirrors ``mha_reference`` of the JAX package.
+
+    ``drop`` (training only; the kernel has none): a function applied to the
+    (B, H, S) attention probabilities before the weighted sum, i.e. dropout;
+    the returned weights are then the dropped ones, as torch's
+    MultiheadAttention and the JAX package return them."""
     b, s, e = keyval.shape
     hd = e // num_heads
     wq, wk, wv = in_proj_weight.float().chunk(3)
@@ -142,6 +156,8 @@ def mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
     v = (kv @ wv.T + bv).view(b, s, num_heads, hd)
     logits = torch.einsum("bhd,bshd->bhs", q / math.sqrt(hd), k)
     probs = torch.softmax(logits, dim=-1)
+    if drop is not None:
+        probs = drop(probs)
     out = torch.einsum("bhs,bshd->bhd", probs, v).reshape(b, e)
     out = out @ out_proj_weight.float().T + out_proj_bias.float()
     return out.to(query.dtype), probs.mean(dim=1).to(query.dtype)
@@ -201,7 +217,92 @@ def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_b
 
 mha.launches = 0
 
-WRAPPERS = {"pe_block": pe_block, "mha": mha}
+
+# --------------------------------------------------------- ceil max pool
+
+
+def ceil_max_pool2d_plain(x):
+    """MaxPool2d(3, stride 2, padding 0, ceil_mode=True), torch's own pool.
+    Mirrors ``_xla_pool`` of the JAX package (NCHW here, NHWC there)."""
+    return F.max_pool2d(x, 3, 2, 0, ceil_mode=True)
+
+
+def ceil_out_size(size: int) -> int:
+    """Output length of a 3/2/0 ceil-mode pool: ceil((size - 3) / 2) + 1;
+    the last window never starts past the input for a kernel of 3."""
+    return -(-(size - 3) // 2) + 1
+
+
+def pool_layout(x) -> bool:
+    """True for channels-last memory order, False for NCHW; raises on
+    anything else the kernel does not take (checked without a card)."""
+    if x.dim() != 4:
+        raise ValueError(f"ceil_max_pool2d: x must be (N, C, H, W), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"ceil_max_pool2d: dtype {x.dtype} not in {list(_DTYPE_CODES)}")
+    if min(x.shape[2:]) < 3:
+        raise ValueError(f"ceil_max_pool2d: H and W must be >= 3, got {tuple(x.shape[2:])}")
+    if x.is_contiguous():
+        return False
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return True
+    raise ValueError(
+        f"ceil_max_pool2d: strides {x.stride()} are neither NCHW nor channels-last"
+    )
+
+
+def _launch_max_pool(x):
+    """One launch of csrc/max_pool.cu; the output has x's memory format."""
+    channels_last = pool_layout(x)
+    n, c, h, w = x.shape
+    oh, ow = ceil_out_size(h), ceil_out_size(w)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    out = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype, memory_format=fmt)
+    if out.numel() == 0:
+        return out
+    lib = _library("max_pool")
+    err = lib.max_pool_forward(
+        _DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x), _ptr(out), n, c, h, w, oh, ow,
+        int(channels_last), _stream(x),
+    )
+    _raise_on_error("max_pool", lib.max_pool_error_string, err)
+    ceil_max_pool2d.launches += 1
+    return out
+
+
+class CeilMaxPool2d(torch.autograd.Function):
+    """The kernel's forward; the backward is the plain pool's gradient on
+    the saved input, as the JAX kernel's custom_vjp takes XLA's
+    reduce-window gradient (pallas_pool.py:140-147)."""
+
+    forward_impl = staticmethod(_launch_max_pool)
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return CeilMaxPool2d.forward_impl(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            leaf = x.detach().requires_grad_(True)
+            (dx,) = torch.autograd.grad(ceil_max_pool2d_plain(leaf), leaf, grad)
+        return dx
+
+
+def ceil_max_pool2d(x):
+    """:func:`ceil_max_pool2d_plain` on the CPU; the CUDA kernel on the card
+    (NCHW or channels-last, fp32 or bf16, no copy), differentiable."""
+    if x.device.type == "cpu":
+        return ceil_max_pool2d_plain(x)
+    _require_cuda(x)
+    return CeilMaxPool2d.apply(x)
+
+
+ceil_max_pool2d.launches = 0
+
+WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d}
 
 
 def reset_launch_counts() -> None:

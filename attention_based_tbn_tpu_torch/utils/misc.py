@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import List, Tuple
 
 
 def get_modality(cfg) -> List[str]:
@@ -16,3 +17,11 @@ def get_modality(cfg) -> List[str]:
     if cfg.data.audio.enable:
         modality.append("Audio")
     return modality
+
+
+def get_time_diff(start_time: float, end_time: float) -> Tuple[int, int, int]:
+    """(hours, minutes, seconds) between two timestamps."""
+    hours = int((end_time - start_time) / 3600)
+    minutes = int((end_time - start_time) / 60) - hours * 60
+    seconds = int(math.floor((end_time - start_time) % 60))
+    return hours, minutes, seconds

@@ -3,14 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``attention_based_tbn_tpu_torch/ops/csrc``,
-holds each against its plain PyTorch version at the flagship shapes, then
-serves the flagship model (tri-modal BN-Inception, 224x224 crops,
-25 segments, 2.1 s audio, MHA attention, bf16, kernels on) with seeded
-weights through ``tools/serve.ServingModel``: requests of batch 1, 3 (in
-the 10 bucket) and 10 through ``predict``, and one HTTP POST. The served
-logits are checked against the same weights run in float32 with the
-kernels off, and the kernels' launch counts against the served requests.
+    python3 chip_smoke.py --out smoke.jsonl   # every line to a file too
+    python3 chip_smoke.py --quick   # build and kernel checks only (no ok line)
+
+Builds the hand-written kernels from ``attention_based_tbn_tpu_torch/ops/csrc``
+(one ``nvcc`` per source, all at once) and holds each against its plain
+PyTorch version at the main paths' shapes. Then drives two paths, each with
+the kernels' launch counts set to 0 just before it and read just after:
+
+* serving: the flagship model (tri-modal BN-Inception, 224x224 crops, 25
+  segments, 2.1 s audio, MHA attention, bf16, kernels on) with seeded
+  weights through ``tools/serve.ServingModel``: requests of batch 1, 3 (in
+  the 10 bucket) and 10 through ``predict``, and one HTTP POST; the served
+  logits are checked against the same weights run in float32 with the
+  kernels off; latency, device profile and per-layer times; then one b=10
+  request with ``tpu.pool_impl=pallas`` against the default config's;
+* training: the flagship recipe (batch 12 x 3 segments, SGD momentum 0.9
+  at lr 1e-2, partialbn, clip 20, dropout 0.5, bf16, ``tpu.pool_impl=
+  pallas``, seeded weights: ``model.pretrained=false``) through
+  ``tools/train.train_one_epoch`` over an in-memory seeded loader (6 batches
+  of 12 clips and a ragged one of 7), then ``validate`` on 2 batches of 2
+  clips x 25 segments; step time, memory and a device profile of one step;
+  and one float32 step with the pool kernel against the same step with the
+  plain pool.
 
 One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -19,8 +34,11 @@ no CUDA device is present or any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
+import logging
+import os
 import subprocess
 import sys
 import threading
@@ -33,8 +51,16 @@ import torch
 
 from attention_based_tbn_tpu_torch.config import load_config
 from attention_based_tbn_tpu_torch.models.attention import PE_CHANNELS, positional_encoding_table
+from attention_based_tbn_tpu_torch.models.builder import build_model
 from attention_based_tbn_tpu_torch.ops import build, kernels
+from attention_based_tbn_tpu_torch.parallel.optim import lr_at_epoch
+from attention_based_tbn_tpu_torch.parallel.train_step import (
+    create_train_state, make_eval_step, make_train_step,
+)
 from attention_based_tbn_tpu_torch.tools.serve import ServingModel, bench, make_server
+from attention_based_tbn_tpu_torch.tools.train import train_one_epoch, validate
+from attention_based_tbn_tpu_torch.utils.metrics import Metric
+from attention_based_tbn_tpu_torch.utils.misc import get_modality
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and operations/s by
 # the activations' type (bf16 tensor cores; fp32 outside the tensor cores).
@@ -54,15 +80,41 @@ S, E, HEADS = 13, 1024, 4
 REPLACES = {
     "pe_block": "attention_based_tbn_tpu/ops/pallas_kernels.py:122",
     "mha": "attention_based_tbn_tpu/ops/pallas_kernels.py:232",
+    "max_pool": "attention_based_tbn_tpu/ops/pallas_pool.py:88",
 }
 SOURCES = {
     "pe_block": "attention_based_tbn_tpu_torch/ops/csrc/pe_block.cu",
     "mha": "attention_based_tbn_tpu_torch/ops/csrc/mha.cu",
+    "max_pool": "attention_based_tbn_tpu_torch/ops/csrc/max_pool.cu",
 }
+# (C, H, W) per row of the four stride-2 ceil max pools of a tower (stem
+# pool1 and pool2, the passthrough of inception 3c and 4e), 224x224 crops
+# and the 256x420 spectrogram of 2.1 s audio.
+POOL_SHAPES = {
+    "visual": ((64, 112, 112), (192, 56, 56), (320, 28, 28), (608, 14, 14)),
+    "audio": ((64, 128, 210), (192, 64, 105), (320, 32, 52), (608, 16, 26)),
+}
+POOL_ROWS = (36, 250)  # a train step's 12 x 3 rows; a b=10 served request's 250
+TOWERS = {"Base_RGB": "visual", "Base_Flow": "visual", "Base_Audio": "audio"}
+# Training: the flagship recipe of the config defaults, seeded weights, and
+# the towers' stride-2 pools on the kernel.
+TRAIN_OVERRIDES = ["model.pretrained=false", "tpu.pool_impl=pallas"]
+TRAIN_BATCHES = [12] * 6 + [7]  # a single-card loader does not pad: the last is ragged
+VAL_BATCHES = [2, 2]
+# One float32 step (TF32 off, dropout 0, deterministic cuDNN) with the pool
+# kernel vs the plain pool: the pools are exact, so any gap is cuDNN's
+# summation order; loss and parameters within this relative tolerance.
+TRAIN_AGREEMENT_RTOL = 1e-5
+
+_LOG = None  # file that every emitted line is also appended to (--out)
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _LOG is not None:
+        with open(_LOG, "a") as fh:
+            fh.write(line + "\n")
 
 
 def gpu_line() -> str:
@@ -126,6 +178,76 @@ def mha_cost(rows: int, dtype) -> tuple:
     moved = elt * (2 * rows * E + rows * S * E + rows * S) + 4 * (4 * E * E + 4 * E)
     ops = 4 * rows * E * E + 4 * rows * S * E * E + 4 * rows * S * E
     return bound(moved, ops, dtype)
+
+
+def max_pool_cost(rows: int, c: int, h: int, w: int, dtype) -> tuple:
+    """Each input element read once, each output written once; 8
+    comparisons per output on the fp32 ALUs (the kernel compares in fp32)."""
+    elt = torch.finfo(dtype).bits // 8
+    outputs = rows * c * kernels.ceil_out_size(h) * kernels.ceil_out_size(w)
+    return bound(elt * (rows * c * h * w + outputs), 8 * outputs, torch.float32)
+
+
+def check_max_pool(failures: list) -> list:
+    """The pool kernel against its plain version (torch's own pool, also the
+    one-call library yardstick) at every tower pool shape, ROWS rows, fp32
+    and bf16, NCHW and channels-last: the forward must be equal, in the
+    input's memory format, and in fp32 the gradient through the autograd
+    Function must equal the plain pool's. Returns one record per case."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = []
+    for rows in POOL_ROWS:
+        for tower, shapes in POOL_SHAPES.items():
+            for c, h, w in shapes:
+                for dtype in (torch.float32, torch.bfloat16):
+                    base = torch.randn(rows, c, h, w, generator=gen, device="cuda", dtype=dtype)
+                    for channels_last in (False, True):
+                        fmt = torch.channels_last if channels_last else torch.contiguous_format
+                        x = base.contiguous(memory_format=fmt)
+                        got, want = kernels.ceil_max_pool2d(x), kernels.ceil_max_pool2d_plain(x)
+                        torch.cuda.synchronize()
+                        exact = bool(torch.equal(got, want)) and got.is_contiguous(
+                            memory_format=fmt)
+                        err = (got.float() - want.float()).abs().max().item()
+                        grad_exact = None
+                        if dtype == torch.float32:
+                            xg = x.detach().requires_grad_(True)
+                            g = torch.randn(want.shape, generator=gen, device="cuda")
+                            (dx,) = torch.autograd.grad(kernels.ceil_max_pool2d(xg), xg, g)
+                            (dw,) = torch.autograd.grad(kernels.ceil_max_pool2d_plain(xg), xg, g)
+                            grad_exact = bool(torch.equal(dx, dw))
+                            del xg, g, dx, dw
+                        bound_ms, bound_by = max_pool_cost(rows, c, h, w, dtype)
+                        record = {
+                            "phase": "max_pool_check", "tower": tower, "rows": rows,
+                            "shape": [c, h, w], "dtype": str(dtype).replace("torch.", ""),
+                            "layout": "channels_last" if channels_last else "nchw",
+                            "exact": exact, "grad_exact": grad_exact, "max_abs_err": err,
+                            "ms": time_ms(lambda: kernels.ceil_max_pool2d(x), 20),
+                            "plain_ms": time_ms(lambda: kernels.ceil_max_pool2d_plain(x), 20),
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                        }
+                        emit(record)
+                        records.append(record)
+                        if not exact or grad_exact is False:
+                            failures.append(f"max_pool {rows}x{c}x{h}x{w} {dtype} "
+                                            f"{record['layout']}: exact={exact} "
+                                            f"grad_exact={grad_exact} err={err}")
+                    del base, x, got, want
+    torch.cuda.empty_cache()
+    return records
+
+
+def pool_step_summary(records: list, rows: int, dtype: str, layout: str) -> dict:
+    """The twelve stride-2 pools of one forward (4 per tower, RGB and Flow
+    at the visual shapes, Audio at its own) summed: ms, plain ms, bound."""
+    by_shape = {(r["tower"], tuple(r["shape"])): r for r in records
+                if r["rows"] == rows and r["dtype"] == dtype and r["layout"] == layout}
+    pools = [by_shape[(TOWERS[t], shape)] for t in TOWERS for shape in POOL_SHAPES[TOWERS[t]]]
+    total = {k: sum(r[k] for r in pools) for k in ("ms", "plain_ms", "bound_ms")}
+    return {**total, "library_ms": total["plain_ms"], "bound_by": "bytes",
+            "max_abs_err": max(r["max_abs_err"] for r in pools), "rows": rows,
+            "dtype": dtype, "layout": layout, "pools": len(pools)}
 
 
 def check_kernels(failures: list) -> dict:
@@ -297,30 +419,31 @@ def check_agreement(served: ServingModel, batch: dict, served_out: dict, failure
 # Kernel-name keywords of the device-time breakdown, first match wins.
 # cuDNN's convolutions name their direction (fprop) or convolve; cuBLAS's
 # GEMMs (sm90_xmma_gemm_*, cutlass*gemm*, nvjet_*) do not, so the conv keys
-# come first and stay specific.
+# come first and stay specific. The pool kernel's own names come before
+# torch's pools; reductions (the live BatchNorm statistics, losses) last.
 CATEGORIES = (
     ("pe_block", ("pe_block_kernel",)),
     ("mha", ("linear_kernel", "attend_kernel")),
+    ("max_pool_kernel", ("max_pool_nchw_kernel", "max_pool_nhwc_kernel")),
     ("conv", ("fprop", "convolve", "conv2d", "convolution", "winograd", "wgrad", "dgrad")),
     ("gemm", ("gemm", "gemv", "nvjet", "matmul")),
     ("pool", ("pool",)),
     ("copy", ("copy", "memcpy", "memset", "cat")),
+    ("reduce", ("reduce_kernel",)),
 )
 
 
-def profile_request(model: ServingModel, b: int) -> dict:
-    """Device time of one served request by kernel category and the
+def device_profile(run) -> dict:
+    """Device time of one call of ``run`` by kernel category and the
     longest kernels (torch.profiler's device events: kernels and copies),
-    and the device's busy share of the request's host wall time (one
-    stream, so device events do not overlap)."""
+    and the device's busy share of the call's host wall time (one stream,
+    so device events do not overlap). ``run`` ends in a host sync."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch = model.example_batch(b, seed=b)
-    model.predict(batch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        model.predict(batch)
+        run()
         wall_ms = (time.perf_counter() - start) * 1e3
     by_category: dict = {}
     by_kernel: dict = {}
@@ -336,11 +459,18 @@ def profile_request(model: ServingModel, b: int) -> dict:
         by_kernel[event.name[:90]] = (total + ms, count + 1)
     device_ms = sum(by_category.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"phase": "profile", "batch": b, "wall_ms": wall_ms, "device_ms": device_ms,
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "device_events": sum(count for _, count in by_kernel.values()),
             "device_ms_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
             "top_device_events": [[name, ms, count] for name, (ms, count) in top]}
+
+
+def profile_request(model: ServingModel, b: int) -> dict:
+    """Device profile of one served request after a warm-up one."""
+    batch = model.example_batch(b, seed=b)
+    model.predict(batch)
+    return {"phase": "profile", "batch": b, **device_profile(lambda: model.predict(batch))}
 
 
 def layer_times(model: ServingModel, b: int) -> dict:
@@ -389,30 +519,286 @@ def layer_times(model: ServingModel, b: int) -> dict:
             "device_ms_by_layer": spans}
 
 
-def main() -> int:
+class SmokeLoader:
+    """Seeded in-memory batches made on the card, in the JAX package's
+    loader contract: ``(batch, targets, meta)`` with ``meta["batch_size"]``,
+    ``__len__`` and ``set_epoch``. Uniform uint8 frames and flow, N(0, 0.1)
+    audio, uniform labels."""
+
+    def __init__(self, cfg, sizes, segments: int, crop: int, seed: int):
+        self.sizes, self.segments, self.crop, self.seed = sizes, segments, crop, seed
+        self.flow_channels = 2 * int(cfg.data.flow.win_length)
+        self.audio_len = int(cfg.data.audio.audio_length * cfg.data.audio.sampling_rate)
+        self.num_classes = dict(cfg.model.num_classes)
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self.sizes)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self):
+        gen = torch.Generator(device="cuda").manual_seed(self.seed + self.epoch)
+        n, crop = self.segments, self.crop
+        for b in self.sizes:
+            def frames(channels):
+                return torch.randint(0, 256, (b, n, crop, crop, channels), generator=gen,
+                                     device="cuda", dtype=torch.uint8)
+            batch = {"RGB": frames(3), "Flow": frames(self.flow_channels),
+                     "Audio": torch.randn(b, n, self.audio_len, generator=gen, device="cuda") * 0.1}
+            targets = {"class": {k: torch.randint(0, c, (b,), generator=gen, device="cuda")
+                                 for k, c in self.num_classes.items()}}
+            yield batch, targets, {"batch_size": b}
+
+
+def train_loaders(cfg):
+    train = SmokeLoader(cfg, TRAIN_BATCHES, int(cfg.train.num_segments),
+                        int(cfg.data.train_crop_size), seed=1)
+    val = SmokeLoader(cfg, VAL_BATCHES, int(cfg.val.num_segments),
+                      int(cfg.data.test_crop_size), seed=2)
+    return train, val
+
+
+def train_path(card: str, failures: list):
+    """The training main path: one ``train_one_epoch`` of the flagship
+    recipe, then ``validate``, with the launch counts set to 0 just before
+    and read just after. Returns (state, cfg, launches)."""
+    cfg = load_config(overrides=TRAIN_OVERRIDES)
+    model = build_model(cfg, get_modality(cfg), device="cuda")
+    state = create_train_state(cfg, model)
+    epoch = 0
+    state.optimizer.set_learning_rate(lr_at_epoch(cfg, epoch))
+    frozen_names = set(state.optimizer.frozen_names)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats_before = {n: b.clone() for n, b in model.named_buffers() if "running_" in n}
+    train_loader, val_loader = train_loaders(cfg)
+    step = make_train_step(cfg)
+    totals = []
+
+    def recording_step(state, batch, targets, ep, bs):
+        state, loss, preds = step(state, batch, targets, ep, bs)
+        totals.append(loss["total"])
+        return state, loss, preds
+
+    logger = logging.getLogger("chip_smoke")
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    state, train_loss = train_one_epoch(cfg, state, recording_step, train_loader,
+                                        Metric(cfg, len(train_loader)), epoch, logger)
+    val_loss, val_acc, _ = validate(cfg, state, make_eval_step(cfg), val_loader, epoch, logger)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+
+    losses = [float(t) for t in totals]
+    after = dict(model.named_parameters())
+    trainable_changed = {n: not torch.equal(after[n], before[n]) for n in after
+                         if n not in frozen_names}
+    # conv biases cancel through live BatchNorm: zero gradient, no weight decay
+    must_change = [n for n in trainable_changed
+                   if not (n.startswith("Base_") and n.endswith(".bias") and "_bn." not in n)]
+    frozen_same = all(torch.equal(after[n], before[n]) for n in frozen_names)
+    buffers = dict(model.named_buffers())
+    stats_changed = {
+        tower: all(not torch.equal(buffers[n], v) for n, v in stats_before.items()
+                   if n.startswith(tower + "."))
+        for tower in TOWERS}
+    lr = state.optimizer.current_learning_rate()
+    expected_pools = 12 * (len(TRAIN_BATCHES) + len(VAL_BATCHES))
+    result = {
+        "phase": "train", "gpu": card, "steps": state.step, "seconds": seconds,
+        "losses": losses, "train_loss": train_loss, "val_loss": val_loss, "val_acc": val_acc,
+        "launches": launches, "expected_max_pool_launches": expected_pools,
+        "trainable_changed": sum(trainable_changed.values()),
+        "trainable": len(trainable_changed), "must_change": len(must_change),
+        "frozen": len(frozen_names), "frozen_bit_identical": frozen_same,
+        "running_stats_changed": stats_changed, "lr": lr, "lr_at_epoch": lr_at_epoch(cfg, epoch),
+    }
+    emit(result)
+    if state.step != len(TRAIN_BATCHES) or not all(np.isfinite(losses)):
+        failures.append(f"train: steps {state.step}, losses {losses}")
+    if not all(np.isfinite(v) for v in list(train_loss.values()) + list(val_loss.values())):
+        failures.append(f"train: non-finite epoch losses {train_loss} {val_loss}")
+    if not all(trainable_changed[n] for n in must_change):
+        failures.append("train: some trainable parameters did not change: "
+                        f"{[n for n in must_change if not trainable_changed[n]][:5]}")
+    if not frozen_same or not frozen_names:
+        failures.append("train: partialbn-frozen BN parameters changed")
+    if not all(stats_changed.values()):
+        failures.append(f"train: running statistics unchanged in {stats_changed}")
+    if lr != lr_at_epoch(cfg, epoch):
+        failures.append(f"train: lr {lr} != lr_at_epoch {lr_at_epoch(cfg, epoch)}")
+    if launches["max_pool"] != expected_pools:
+        failures.append(f"train: max_pool launched {launches['max_pool']} times, "
+                        f"expected {expected_pools}")
+    for name, count in launches.items():
+        if count < 1:
+            failures.append(f"kernel {name} was not launched on the training path")
+    return state, cfg, launches
+
+
+def train_timing(state, cfg, card: str) -> dict:
+    """Host time of full steps, each ended by a synchronize, after two
+    warm-up steps; peak device memory over them."""
+    step = make_train_step(cfg)
+    loader = SmokeLoader(cfg, [12] * 12, int(cfg.train.num_segments),
+                         int(cfg.data.train_crop_size), seed=3)
+    batches = list(loader)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for batch, targets, meta in batches:
+        start = time.perf_counter()
+        step(state, batch, targets, 0, meta["batch_size"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    steady = sorted(times[2:])
+    p50 = steady[len(steady) // 2] * 1e3
+    result = {"phase": "train_timing", "gpu": card, "batch": 12,
+              "segments": int(cfg.train.num_segments), "steps_timed": len(steady),
+              "step_ms_p50": p50, "step_ms_min": steady[0] * 1e3,
+              "step_ms_max": steady[-1] * 1e3, "clips_per_sec": 12 / (p50 / 1e3),
+              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "compute_dtype": cfg.tpu.compute_dtype, "pool_impl": cfg.tpu.pool_impl}
+    emit(result)
+
+    # one more step under the profiler; the pool kernel's inputs recorded
+    batch, targets, meta = batches[-1]
+    layouts = []
+    launch = kernels.CeilMaxPool2d.forward_impl
+
+    def recording(x):
+        layouts.append("channels_last" if kernels.pool_layout(x) else "nchw")
+        return launch(x)
+
+    def one_step():
+        step(state, batch, targets, 0, meta["batch_size"])
+        torch.cuda.synchronize()
+
+    kernels.CeilMaxPool2d.forward_impl = staticmethod(recording)
+    try:
+        prof = device_profile(one_step)
+    finally:
+        kernels.CeilMaxPool2d.forward_impl = staticmethod(launch)
+    emit({"phase": "train_profile", "gpu": card, **prof,
+          "pool_kernel_layouts": {k: layouts.count(k) for k in set(layouts)}})
+    return {**result, "pool_layouts": layouts}
+
+
+def train_agreement(state_dict: dict, failures: list) -> None:
+    """One float32 step (TF32 off, dropout off, deterministic cuDNN) from
+    the same weights on the same batch, with the pool kernel and with the
+    plain pool: loss and updated parameters must agree."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for impl in ("pallas", "reduce_window"):
+            cfg = load_config(overrides=[
+                "model.pretrained=false", "tpu.compute_dtype=float32", f"tpu.pool_impl={impl}",
+                "model.attention.attn_dropout=0", "model.fusion_dropout=0", "data.audio.dropout=0"])
+            model = build_model(cfg, get_modality(cfg), device="cuda")
+            model.load_state_dict(state_dict, strict=True)
+            state = create_train_state(cfg, model)
+            batch, targets, meta = next(iter(train_loaders(cfg)[0]))
+            kernels.reset_launch_counts()
+            _, loss, _ = make_train_step(cfg)(state, batch, targets, 0, meta["batch_size"])
+            runs[impl] = (float(loss["total"]), kernels.ceil_max_pool2d.launches,
+                          {n: p.detach().clone() for n, p in model.named_parameters()})
+            del model, state, batch, targets
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (loss_k, launches_k, params_k), (loss_p, launches_p, params_p) = runs["pallas"], runs[
+        "reduce_window"]
+    worst, identical = 0.0, 0
+    for name, want in params_p.items():
+        diff = (params_k[name] - want).abs().max().item()
+        worst = max(worst, diff / max(want.abs().max().item(), 1e-12))
+        identical += bool(torch.equal(params_k[name], want))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit({"phase": "train_agreement", "loss_pool_kernel": loss_k, "loss_plain_pool": loss_p,
+          "loss_rel_diff": loss_rel, "param_max_rel_diff": worst,
+          "params_bit_identical": identical, "params": len(params_p),
+          "pool_kernel_launches": [launches_k, launches_p], "rtol": TRAIN_AGREEMENT_RTOL})
+    if not (loss_rel <= TRAIN_AGREEMENT_RTOL and worst <= TRAIN_AGREEMENT_RTOL):
+        failures.append(f"train_agreement: loss rel {loss_rel}, params rel {worst}")
+    if launches_k != 12 or launches_p != 0:
+        failures.append(f"train_agreement: pool kernel launches {launches_k}, {launches_p}")
+
+
+def pallas_serving(served: ServingModel, batch: dict, want: dict, card: str,
+                   failures: list) -> dict:
+    """One b=10 request with tpu.pool_impl=pallas (the same weights) against
+    the default config's logits; its latency and launches."""
+    cfg = load_config(overrides=["tpu.pool_impl=pallas"])
+    model = ServingModel(cfg, served.model.state_dict(), device="cuda", batch_buckets=(10,))
+    kernels.reset_launch_counts()
+    out = model.predict(batch)
+    launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    result = {"phase": "serve_pool_kernel", "gpu": card, "launches": launches}
+    for head in ("verb", "noun", "weights"):
+        diff = float(np.abs(out[head] - want[head]).max())
+        tol = atol + rtol * float(np.abs(want[head]).max())
+        result[head] = {"max_abs_vs_default": diff, "tolerance": tol}
+        if not diff <= tol:
+            failures.append(f"pool_impl=pallas serving {head}: {diff} > {tol}")
+    result["latency"] = bench(model, 10, 10)
+    emit(result)
+    for name, count in launches.items():
+        if count < 1:
+            failures.append(f"kernel {name} was not launched serving with pool_impl=pallas")
+    if launches["max_pool"] != 12:
+        failures.append(f"pool_impl=pallas serving: {launches['max_pool']} pool launches, not 12")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main(argv=None) -> int:
+    global _LOG
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--out", default=None, help="also append every JSON line to this file")
+    parser.add_argument("--quick", action="store_true",
+                        help="build and check the kernels only; prints no ok line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(message)s")
+    _LOG = args.out
+    if _LOG:
+        os.makedirs(os.path.dirname(_LOG) or ".", exist_ok=True)
     failures: list = []
     card = gpu_line()
     start = time.perf_counter()
-    build.build()
+    build_s = build.build()
     emit({"phase": "env", "gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": time.perf_counter() - start,
+          "build_s_by_kernel": build_s,
           "ptxas": {n: [line.split("ptxas info    : ")[-1].strip()
                         for line in build.ptxas_report(n).splitlines() if "Used" in line]
                     for n in build.KERNELS}})
 
     main_case = check_kernels(failures)
+    pool_records = check_max_pool(failures)
+    if args.quick:
+        for failure in failures:
+            print(f"FAILED: {failure}", file=sys.stderr)
+        return 1 if failures else 0
 
+    # serving path: pe_block and mha
     cfg = load_config()  # flagship defaults: tri-modal MHA, 224^2, 25 seg, bf16, kernels on
     model = ServingModel(cfg, None, device="cuda", batch_buckets=(1, 10))
     kernels.reset_launch_counts()
     outputs = serve_requests(model, failures)
-    launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
-    emit({"phase": "launches", **launches})
-    for name, count in launches.items():
-        if count < 1:
+    serve_launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+    emit({"phase": "launches", "path": "serve", **serve_launches})
+    for name in ("pe_block", "mha"):
+        if serve_launches[name] < 1:
             failures.append(f"kernel {name} was not launched on the main path")
 
     batch10, out10 = outputs[10]
@@ -422,7 +808,26 @@ def main() -> int:
         emit({"phase": "latency", "gpu": card, **bench(model, 20, b)})
         emit({**profile_request(model, b), "gpu": card})
         emit({**layer_times(model, b), "gpu": card})
+    pallas_serving(model, batch10, out10, card, failures)
+    del model
+    torch.cuda.empty_cache()
 
+    # training path: the pool kernel, and pe_block / mha in validate
+    state, train_cfg, train_launches = train_path(card, failures)
+    emit({"phase": "launches", "path": "train", **train_launches})
+    timing = train_timing(state, train_cfg, card)
+    trained = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    train_agreement(trained, failures)
+
+    layouts = timing["pool_layouts"]
+    layout = max(set(layouts), key=layouts.count) if layouts else "nchw"
+    pool_case = pool_step_summary(pool_records, POOL_ROWS[0], "bfloat16", layout)
+    emit({"phase": "max_pool_train_step", **pool_case})
+    main_case["max_pool"] = pool_case
+    launches = {"pe_block": serve_launches["pe_block"], "mha": serve_launches["mha"],
+                "max_pool": train_launches["max_pool"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": main_case[name]["max_abs_err"],

@@ -68,8 +68,9 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert f"{PACKAGE}.tools.serve" in result["imported"]
-    assert f"{PACKAGE}.ops.kernels" in result["imported"]
+    for module in ("tools.serve", "tools.train", "ops.kernels", "ops.pooling", "models.losses",
+                   "parallel.optim", "parallel.train_step", "utils.metrics"):
+        assert f"{PACKAGE}.{module}" in result["imported"]
     assert [m for m in result["loaded"] if forbidden(m)] == []
 
 

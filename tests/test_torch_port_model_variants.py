@@ -76,10 +76,16 @@ def test_bf16_forward_stays_within_the_drift_bound():
 
 
 def test_training_forward_is_refused():
+    """The training forward draws dropout and gumbel noise from an explicit
+    generator only: without one it is refused, with one it runs."""
     cfg, _ = configs(["data.flow.enable=false"])
     model = port_model(cfg).train()
-    with pytest.raises(RuntimeError, match="eval"):
+    with pytest.raises(ValueError, match="Generator"):
         port_forward(model, make_batch(cfg))
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg).items()}
+    with torch.no_grad():
+        out = model(batch, generator=torch.Generator().manual_seed(0))
+    assert out["verb"].shape == (2, 125) and torch.isfinite(out["noun"]).all()
 
 
 def test_spec_validation():
