@@ -1,1 +1,2 @@
-"""Data-side helpers the model needs (attention priors)."""
+"""The host data pipeline: records, sampling, decode, transforms, priors,
+the dataset and the loader that feeds the card."""

@@ -1,0 +1,87 @@
+"""Command line of the port: the JAX package's ``main.py`` override surface.
+
+    python -m attention_based_tbn_tpu_torch.main train.enable=false test.enable=true \\
+        test.pre_trained=/path/weights.pth data_dir=/data/epic ...
+
+Composes the config (``config/defaults`` of the port, same keys), makes
+the hydra-style run dir ``<out_dir>/log/<exp_name>/run_...``, sets up the
+run log, and runs evaluation (``tools/test.run_tester``). The device is
+CUDA unless ``tpu.platform=cpu`` asks for the CPU. Training from here
+(``train.enable=true``) raises until ``run_trainer`` is ported.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from .config import load_config, make_run_dir
+from .utils.logging import setup_log
+from .utils.misc import get_modality
+
+
+def device_for(cfg) -> str:
+    """"cpu" for ``tpu.platform=cpu``, "cuda" for "" (the default), "gpu"
+    or "cuda"; other platforms are refused."""
+    platform = str(cfg.get_path("tpu.platform", "") or "").lower()
+    if platform == "cpu":
+        return "cpu"
+    if platform in ("", "gpu", "cuda"):
+        return "cuda"
+    raise ValueError(f"tpu.platform={platform!r}: the port runs on 'cpu' or 'cuda'")
+
+
+def main(argv=None):
+    """Returns run_tester's per-file results (None without test.enable)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    config_dir, overrides = None, []
+    i = 0
+    while i < len(argv):
+        if argv[i] in ("--config-dir", "-cd"):
+            if i + 1 >= len(argv):
+                raise SystemExit(f"error: missing value for {argv[i]}")
+            config_dir = argv[i + 1]
+            i += 2
+        else:
+            overrides.append(argv[i])
+            i += 1
+
+    cfg = load_config(overrides=overrides, config_dir=config_dir)
+    device = device_for(cfg)
+    seed = int(cfg.data.manual_seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    modality = get_modality(cfg)
+    run_dir = make_run_dir(cfg)
+    cfg.run_dir = run_dir
+    logger, _ = setup_log(modality, run_dir)
+    logger.info("Initializing the pipeline...")
+    logger.info(cfg.pretty())
+    logger.info(f"Modality: {modality}")
+    logger.info(f"Run dir: {run_dir}")
+    logger.info(f"Device: {device}")
+    logger.info("-" * 58)
+
+    results = None
+    try:
+        if cfg.train.enable:
+            raise NotImplementedError(
+                "train.enable=true: run_trainer (with checkpoint save and resume) is not "
+                "ported yet; train with the JAX package's main.py, or pass "
+                "train.enable=false test.enable=true to evaluate"
+            )
+        if cfg.test.enable:
+            logger.info("Evaluating the model.")
+            from .tools.test import run_tester
+
+            results = run_tester(cfg, logger, modality, device=device)
+    except Exception as exc:  # noqa: BLE001 — logged into the run dir, then raised
+        logger.exception(exc)
+        raise
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -21,6 +21,13 @@ the optimizer.
 four 3x3 / stride-2 ceil pools (stem pool1 and pool2, the passthrough of
 inception 3c and 4e) run the hand-written kernel on a CUDA tensor.
 
+``fused_stem`` (``tpu.fused_stem``): at eval, a 7x7 stem on an input whose
+H and W are multiples of 4 runs normalize -> conv -> BN -> ReLU -> pool1 as
+one kernel (ops/kernels.fused_stem), on the conv's BN-folded float32
+weights rounded to the compute type and a float32 bias, as the JAX package
+gates it (bn_inception.py:563-589). Training, the audio stem and other
+shapes keep the regular stem and pool1.
+
 Modules are flat attributes named as in the reference state dict
 (``conv1_7x7_s2`` + ``conv1_7x7_s2_bn``, ``inception_3a_1x1`` + ``..._bn``),
 so weights in the reference ``.pth`` layout load with ``strict=True``.
@@ -42,6 +49,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels import fused_stem, fused_stem_shape_error
 from ..ops.pooling import avg_pool2d, global_avg_pool, max_pool2d
 from .layers import BN_EPSILON, FoldCache, batch_norm_train, variance_scaling_
 
@@ -83,11 +91,13 @@ class BNInception(nn.Module):
     mode, the train graph."""
 
     def __init__(self, in_channels: int, freq_pool_only: bool = False,
-                 audio_stem: bool = False, pool_impl: str = "reduce_window"):
+                 audio_stem: bool = False, pool_impl: str = "reduce_window",
+                 fused_stem: bool = False):
         super().__init__()
         self.freq_pool_only = freq_pool_only
         self.audio_stem = audio_stem
         self.pool_impl = pool_impl
+        self.fused_stem = fused_stem
         self._folded = FoldCache()
         if audio_stem:
             self._conv_bn("conv1_1x3_s2", in_channels, 32, (3, 1), 2, (1, 0))
@@ -136,6 +146,24 @@ class BNInception(nn.Module):
         # in place: the conv's backward needs its input and weight, not its output
         return F.relu(F.conv2d(x, w, b, conv.stride, conv.padding), inplace=True)
 
+    def uses_fused_stem(self, x: torch.Tensor) -> bool:
+        """Whether the fused stem takes NCHW ``x`` in the current mode."""
+        return (self.fused_stem and not self.training and not self.audio_stem
+                and not fused_stem_shape_error(x.permute(0, 2, 3, 1)))
+
+    def _fused_stem(self, x: torch.Tensor, dtype: torch.dtype,
+                    input_scale: Optional[torch.Tensor],
+                    input_offset: Optional[torch.Tensor]) -> torch.Tensor:
+        """Stem + pool1 of NCHW ``x`` (raw uint8 with its affine, or float)
+        in one kernel; the tower's input is NHWC memory, read as it lies."""
+        conv, bn = self.conv1_7x7_s2, self.conv1_7x7_s2_bn
+        w, b = self._folded.get("conv1_7x7_s2/fused", conv, bn, dtype, torch.float32)
+        if input_scale is None:
+            input_scale = torch.ones(x.shape[1], device=x.device)
+            input_offset = torch.zeros(x.shape[1], device=x.device)
+        return fused_stem(x.permute(0, 2, 3, 1).contiguous(), w, b, input_scale, input_offset,
+                          dtype)
+
     def _max_pool(self, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
         return max_pool2d(x, 3, stride, padding, ceil_mode=True, impl=self.pool_impl)
 
@@ -169,15 +197,19 @@ class BNInception(nn.Module):
         uint8 input, applied in ``dtype`` before the stem's zero padding.
         ``row_mask``: 0/1 per row, training only; zero rows are left out of
         every BatchNorm statistic."""
-        x = x.to(dtype)
-        if input_scale is not None:
-            x = x * input_scale.to(dtype)[:, None, None] + input_offset.to(dtype)[:, None, None]
-        if self.audio_stem:
-            y = torch.cat([self._cbr("conv1_1x3_s2", x, row_mask),
-                           self._cbr("conv1_3x1_s2", x, row_mask)], dim=1)
+        if self.uses_fused_stem(x):
+            y = self._fused_stem(x, dtype, input_scale, input_offset)
         else:
-            y = self._cbr("conv1_7x7_s2", x, row_mask)
-        y = self._max_pool(y, 2, 0)
+            x = x.to(dtype)
+            if input_scale is not None:
+                x = (x * input_scale.to(dtype)[:, None, None]
+                     + input_offset.to(dtype)[:, None, None])
+            if self.audio_stem:
+                y = torch.cat([self._cbr("conv1_1x3_s2", x, row_mask),
+                               self._cbr("conv1_3x1_s2", x, row_mask)], dim=1)
+            else:
+                y = self._cbr("conv1_7x7_s2", x, row_mask)
+            y = self._max_pool(y, 2, 0)
         y = self._cbr("conv2_3x3", self._cbr("conv2_3x3_reduce", y, row_mask), row_mask)
         y = self._max_pool(y, 2, 0)
         for name, s in BN_INCEPTION_BLOCKS:

@@ -39,15 +39,16 @@ def compute_dtype(name: str) -> torch.dtype:
 
 
 @torch.no_grad()
-def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d,
-                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+                 bias_dtype: torch.dtype = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """BN(conv(x, W) + b) on running statistics == conv(x, W*s) + (b*s + o)
     with s = gamma / sqrt(var + eps), o = beta - mean*s; folded in float32,
-    returned in ``dtype``."""
+    the kernel returned in ``dtype``, the bias in ``bias_dtype`` (default
+    ``dtype``)."""
     s = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     w = conv.weight * s[:, None, None, None]
     b = conv.bias * s + (bn.bias - bn.running_mean * s)
-    return w.to(dtype), b.to(dtype)
+    return w.to(dtype), b.to(bias_dtype or dtype)
 
 
 class FoldCache:
@@ -59,13 +60,14 @@ class FoldCache:
     def __init__(self):
         self._entries: Dict[str, tuple] = {}
 
-    def get(self, name: str, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype):
+    def get(self, name: str, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+            bias_dtype: torch.dtype = None):
         sources = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
                    bn.running_var)
-        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in sources)
+        key = (dtype, bias_dtype) + tuple((t.data_ptr(), t._version) for t in sources)
         hit = self._entries.get(name)
         if hit is None or hit[0] != key:
-            hit = (key,) + fold_conv_bn(conv, bn, dtype)
+            hit = (key,) + fold_conv_bn(conv, bn, dtype, bias_dtype)
             self._entries[name] = hit
         return hit[1], hit[2]
 

@@ -9,7 +9,9 @@ core/models/model.py:205-262):
   the first modality's feature as query (MHA / unimodal / prototype);
 * under 10-crop the audio rows are tiled to the visual crop rows;
 * features concat -> Fusion(512) when multimodal -> per-class heads ->
-  segment consensus = mean of the logits over segments.
+  segment consensus = mean of the logits over segments (with
+  ``fast_consensus``, the mean of the features before the heads; with the
+  kernels on, both in one ``consensus_heads`` launch at eval).
 
 In training (``.train()``) the towers run live BatchNorm, the attention
 block its plain compositions with dropout / gumbel noise, Fusion its
@@ -33,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from ..data.priors import attention_window_size
+from ..ops.kernels import consensus_heads
 from ..ops.pooling import POOL_IMPLS
 from ..ops.spectrogram import spectrogram
 from ..utils.device import tf32_scope
@@ -90,8 +93,13 @@ class TBNSpec:
     # runs the towers' stride-2 ceil pools on the hand-written kernel.
     pool_impl: str = "reduce_window"
     # Average features before the heads instead of logits after them (same
-    # math: consensus commutes with the linear heads).
+    # math: consensus commutes with the linear heads). With use_pallas, the
+    # eval forward runs mean and heads as one kernel (consensus_heads).
     fast_consensus: bool = False
+    # Eval stem + pool1 of the 7x7 towers as one kernel (tpu.fused_stem).
+    fused_stem: bool = False
+    # tpu.quantize: "" only; the int8 towers are not ported (raises).
+    quantize: str = ""
     # RGB mean is BGR-ordered, matching the reference's BGR decode.
     rgb_mean: Tuple[float, ...] = (0.408, 0.459, 0.502)
     rgb_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
@@ -127,6 +135,8 @@ class TBNSpec:
             use_pallas=bool(cfg.get_path("tpu.use_pallas", False)),
             pool_impl=str(cfg.get_path("tpu.pool_impl", "reduce_window") or "reduce_window"),
             fast_consensus=bool(cfg.get_path("tpu.fast_consensus", False)),
+            fused_stem=bool(cfg.get_path("tpu.fused_stem", False)),
+            quantize=str(cfg.get_path("tpu.quantize", "") or ""),
         )
 
     @property
@@ -158,6 +168,13 @@ class TBNSpec:
         if self.pool_impl not in POOL_IMPLS:
             # a misspelt tpu.pool_impl must not fall through to the plain pool
             raise ValueError(f"Unknown pool_impl {self.pool_impl!r}; expected one of {POOL_IMPLS}")
+        if self.quantize:
+            # the JAX package runs int8 towers here; returning bf16 logits
+            # under that label would be a silent substitution
+            raise ValueError(
+                f"tpu.quantize={self.quantize!r} is not ported yet (the int8 towers); "
+                "the port runs with tpu.quantize unset only"
+            )
         compute_dtype(self.compute_dtype)
 
 
@@ -175,6 +192,7 @@ class TBNModel(nn.Module):
                 freq_pool_only=(m == "Audio" and spec.audio_attends),
                 audio_stem=(m in spec.audio_stem),
                 pool_impl=spec.pool_impl,
+                fused_stem=spec.fused_stem,
             ))
         if spec.learned_attention:
             if spec.attention_type == "mha":
@@ -261,7 +279,13 @@ class TBNModel(nn.Module):
         fused = torch.cat(features, dim=-1)
         if spec.multimodal:
             fused = self.fusion(fused, dtype, generator)
-        if spec.fast_consensus:
+        if spec.fast_consensus and use_kernels and not self.training:
+            heads = list(self.classifier.items())
+            logits = consensus_heads(fused.reshape(b, n_consensus, -1),
+                                     [head.weight for _, head in heads],
+                                     [head.bias for _, head in heads])
+            out = {name: v for (name, _), v in zip(heads, logits)}
+        elif spec.fast_consensus:
             pooled = fused.reshape(b, n_consensus, -1).float().mean(dim=1).to(dtype)
             out = {k: v.float() for k, v in self.classifier(pooled, dtype).items()}
         else:

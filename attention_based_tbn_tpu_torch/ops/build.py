@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-KERNELS = ("pe_block", "mha", "max_pool")
+KERNELS = ("pe_block", "mha", "max_pool", "fused_stem", "consensus_heads")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

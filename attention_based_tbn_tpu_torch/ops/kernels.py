@@ -10,6 +10,12 @@
   pool on NCHW or channels-last input (csrc/max_pool.cu; replaces
   ``ops/pallas_pool.py:ceil_max_pool2d_pallas``), differentiable through
   the plain pool's gradient.
+* ``fused_stem`` — the eval stem of a 7x7 tower: normalize -> 7x7/2 conv
+  with BatchNorm folded in -> + float32 bias -> ReLU -> 3x3/2 ceil max pool
+  (csrc/fused_stem.cu; replaces ``ops/fused_stem.py:fused_stem_pallas``).
+* ``consensus_heads`` — the segment mean of (B, N, F) features and every
+  classifier head on it, float32 logits (csrc/consensus_heads.cu; replaces
+  ``ops/pallas_kernels.py:consensus_heads_pallas``).
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain version
 (``*_plain``); a CUDA tensor launches the kernel, or raises when the kernel
@@ -54,7 +60,20 @@ _SIGNATURES = {
         "max_pool_forward": (_I, [_I, _I, _P, _P] + [_I] * 7 + [_P]),
         "max_pool_error_string": (ctypes.c_char_p, [_I]),
     },
+    "fused_stem": {
+        "fused_stem_forward": (_I, [_I, _I, _I] + [_P] * 6 + [_I] * 4 + [_P]),
+        "fused_stem_out_channels": (_I, []),
+        "fused_stem_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "consensus_heads": {
+        "consensus_heads_forward": (_I, [_I, _I] + [_P] * 5 + [_I] * 4 + [_P]),
+        "consensus_heads_max_features": (_I, []),
+        "consensus_heads_max_heads": (_I, []),
+        "consensus_heads_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
+_STEM_INPUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+_MAX_GRID_Y = 65535  # the kernels put the batch on the grid's y axis
 _GROUP_CHANNELS = (4, 8, 16, 32, 64)  # channels per group the kernel handles
 
 
@@ -302,7 +321,137 @@ def ceil_max_pool2d(x):
 
 ceil_max_pool2d.launches = 0
 
-WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d}
+# ------------------------------------------------------------- fused stem
+
+STEM_CHANNELS = 64
+
+
+def fused_stem_plain(x, weight, bias, input_scale, input_offset, dtype):
+    """(B, H, W, C) uint8 or float NHWC -> (B, 64, H/4, W/4) in ``dtype``.
+
+    Normalizes in ``dtype`` (x * scale + offset), convolves 7x7 / stride 2 /
+    pad 3 with the BN-folded ``weight`` (64, C, 7, 7) rounded to ``dtype``,
+    accumulating in float32, adds the float32 ``bias``, ReLU, then the 3x3 /
+    stride 2 ceil-mode max pool; rounds to ``dtype`` once. Mirrors
+    ``fused_stem_reference`` of the JAX package (whose Pallas kernel, like
+    the CUDA one, normalizes in float32 before its one rounding: at bf16 the
+    two differ there by one rounding of the input)."""
+    xf = x.to(dtype) * input_scale.to(dtype) + input_offset.to(dtype)
+    y = F.conv2d(xf.permute(0, 3, 1, 2).float(), weight.to(dtype).float(), None, 2, 3)
+    y = F.relu(y + bias.float()[:, None, None])
+    return ceil_max_pool2d_plain(y).to(dtype)
+
+
+def fused_stem_shape_error(x) -> str:
+    """Why the fused stem cannot take NHWC ``x`` ("" when it can): the JAX
+    package's gate (7x7 stem, H and W multiples of 4) and the kernel's
+    input types. Checked without a card."""
+    if x.dim() != 4:
+        return f"x must be (B, H, W, C), got {tuple(x.shape)}"
+    if x.shape[1] % 4 or x.shape[2] % 4 or min(x.shape[1:3]) < 4:
+        return f"H and W must be positive multiples of 4, got {tuple(x.shape[1:3])}"
+    if x.dtype not in _STEM_INPUT_CODES:
+        return f"input dtype {x.dtype} not in {list(_STEM_INPUT_CODES)}"
+    return ""
+
+
+def fused_stem(x, weight, bias, input_scale, input_offset, dtype):
+    """:func:`fused_stem_plain` on the CPU; the CUDA kernel on the card,
+    which reads NHWC ``x`` as it lies and returns a channels-last tensor."""
+    if x.device.type == "cpu":
+        return fused_stem_plain(x, weight, bias, input_scale, input_offset, dtype)
+    _require_cuda(x)
+    problem = fused_stem_shape_error(x)
+    if problem:
+        raise ValueError(f"fused_stem: {problem}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"fused_stem: compute dtype {dtype} not in {list(_DTYPE_CODES)}")
+    if not x.is_contiguous():
+        raise ValueError("fused_stem: x must be contiguous NHWC memory")
+    b, h, w, c = x.shape
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"fused_stem: batch {b} > {_MAX_GRID_Y}")
+    if tuple(weight.shape) != (STEM_CHANNELS, c, 7, 7):
+        raise ValueError(
+            f"fused_stem: weight {tuple(weight.shape)} != ({STEM_CHANNELS}, {c}, 7, 7)")
+    if weight.dtype != dtype or weight.device != x.device or not weight.is_contiguous():
+        raise ValueError(f"fused_stem: weight must be contiguous {dtype} on {x.device}")
+    for name, t, n in (("bias", bias, STEM_CHANNELS), ("input_scale", input_scale, c),
+                       ("input_offset", input_offset, c)):
+        _check_param("fused_stem", name, t, x.device)
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"fused_stem: {name} {tuple(t.shape)} != ({n},)")
+    lib = _library("fused_stem")
+    out = torch.empty((b, STEM_CHANNELS, h // 4, w // 4), device=x.device, dtype=dtype,
+                      memory_format=torch.channels_last)
+    err = lib.fused_stem_forward(
+        _STEM_INPUT_CODES[x.dtype], _DTYPE_CODES[dtype], x.device.index or 0, _ptr(x),
+        _ptr(weight), _ptr(bias), _ptr(input_scale), _ptr(input_offset), _ptr(out),
+        b, c, h, w, _stream(x),
+    )
+    _raise_on_error("fused_stem", lib.fused_stem_error_string, err)
+    fused_stem.launches += 1
+    return out
+
+
+fused_stem.launches = 0
+
+
+# ------------------------------------------------------- consensus + heads
+
+
+def consensus_heads_plain(features, weights, biases):
+    """(B, N, F) features -> [(B, C_h) float32 logits]: the float32 mean
+    over N, then ``pooled @ W_h.T + b_h`` in float32 per head (torch-layout
+    (C_h, F) weights). Mirrors ``consensus_heads_reference`` of the JAX
+    package."""
+    pooled = features.float().mean(dim=1)
+    return [pooled @ w.float().T + b.float() for w, b in zip(weights, biases)]
+
+
+def consensus_heads(features, weights, biases):
+    """:func:`consensus_heads_plain` on the CPU; one launch of the CUDA
+    kernel for every head on the card."""
+    if features.device.type == "cpu":
+        return consensus_heads_plain(features, weights, biases)
+    _require_cuda(features)
+    lib = _library("consensus_heads")
+    if features.dim() != 3:
+        raise ValueError(f"consensus_heads: features must be (B, N, F), got "
+                         f"{tuple(features.shape)}")
+    _check_activation("consensus_heads", features)
+    b, n, f = features.shape
+    if not 1 <= f <= lib.consensus_heads_max_features() or n < 1 or not 1 <= b <= _MAX_GRID_Y:
+        raise ValueError(f"consensus_heads: (B, N, F) {tuple(features.shape)} outside the "
+                         f"kernel's range (F <= {lib.consensus_heads_max_features()})")
+    if not 1 <= len(weights) <= lib.consensus_heads_max_heads() or len(weights) != len(biases):
+        raise ValueError(f"consensus_heads: {len(weights)} weights, {len(biases)} biases; "
+                         f"1 to {lib.consensus_heads_max_heads()} heads")
+    for w, bias in zip(weights, biases):
+        _check_param("consensus_heads", "weight", w, features.device)
+        _check_param("consensus_heads", "bias", bias, features.device)
+        if w.dim() != 2 or w.shape[1] != f or tuple(bias.shape) != (w.shape[0],):
+            raise ValueError(f"consensus_heads: weight {tuple(w.shape)} / bias "
+                             f"{tuple(bias.shape)} do not fit F={f}")
+    outs = [torch.empty((b, w.shape[0]), device=features.device, dtype=torch.float32)
+            for w in weights]
+    count = len(weights)
+    pointers = ctypes.c_void_p * count
+    err = lib.consensus_heads_forward(
+        _DTYPE_CODES[features.dtype], features.device.index or 0, _ptr(features),
+        pointers(*[_ptr(w) for w in weights]), pointers(*[_ptr(v) for v in biases]),
+        pointers(*[_ptr(o) for o in outs]), (ctypes.c_int * count)(*[w.shape[0] for w in weights]),
+        count, b, n, f, _stream(features),
+    )
+    _raise_on_error("consensus_heads", lib.consensus_heads_error_string, err)
+    consensus_heads.launches += 1
+    return outs
+
+
+consensus_heads.launches = 0
+
+WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d,
+            "fused_stem": fused_stem, "consensus_heads": consensus_heads}
 
 
 def reset_launch_counts() -> None:

@@ -87,6 +87,23 @@ def _frame_params(sr: int, window_ms: float, hop_ms: float):
     return int(round(window_ms * sr / 1e3)), int(round(hop_ms * sr / 1e3))
 
 
+def log_power_stft_np(signal: np.ndarray, sr: int = 24000, n_fft: int = 511,
+                      window_ms: float = 10.0, hop_ms: float = 5.0,
+                      eps: float = 1e-6) -> np.ndarray:
+    """Host numpy mirror of :func:`log_power_stft` for one (L,) waveform,
+    (n_bins, n_frames) float32: the ``loud`` attention prior runs it in the
+    loader's threads. Same math: centre zero padding, strided frames, the
+    padded periodic Hann window, rfft power, log(. + eps)."""
+    win_length, hop = _frame_params(sr, window_ms, hop_ms)
+    pad = n_fft // 2
+    padded = np.pad(np.asarray(signal, np.float32), (pad, pad))
+    frames_n = 1 + (padded.shape[0] - n_fft) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(frames_n)[:, None]
+    spec = np.fft.rfft(padded[idx] * _padded_window(win_length, n_fft), n=n_fft, axis=-1)
+    power = (spec.real**2 + spec.imag**2).astype(np.float32)
+    return np.log(power + eps).T
+
+
 def log_power_stft(signal: torch.Tensor, sr: int = 24000, n_fft: int = 511,
                    window_ms: float = 10.0, hop_ms: float = 5.0, eps: float = 1e-6,
                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Host-side helpers: modality resolution and device selection."""
+"""Host-side helpers: device selection, metrics, logging, eval restore and
+the challenge JSON."""

@@ -1,0 +1,42 @@
+"""Run logging: a Python logger to the console and the run directory, and
+a TensorBoard writer when tensorboardX imports.
+
+Port of the JAX package's ``utils/logging.setup_log`` (reference
+core/utils/log.py: format ``%(levelname)s : %(asctime)s : %(message)s``,
+console and file).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import List, Optional
+
+_FORMAT = "%(levelname)s : %(asctime)s : %(message)s"
+
+
+def setup_log(modality: List[str], run_dir: Optional[str] = None):
+    """(logger, writer): the writer is a tensorboardX SummaryWriter into
+    ``run_dir``, or None without tensorboardX or a run dir."""
+    name = "tbn_" + "_".join(modality)
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    logger.handlers.clear()
+    logger.propagate = False  # no duplicate lines through the root logger
+    formatter = logging.Formatter(_FORMAT)
+    console = logging.StreamHandler()
+    console.setFormatter(formatter)
+    logger.addHandler(console)
+    writer = None
+    if run_dir:
+        os.makedirs(run_dir, exist_ok=True)
+        file_handler = logging.FileHandler(os.path.join(run_dir, f"{name}.log"))
+        file_handler.setFormatter(formatter)
+        logger.addHandler(file_handler)
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            SummaryWriter = None
+        if SummaryWriter is not None:
+            writer = SummaryWriter(logdir=run_dir)
+    return logger, writer

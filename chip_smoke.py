@@ -8,8 +8,8 @@
 
 Builds the hand-written kernels from ``attention_based_tbn_tpu_torch/ops/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version at the main paths' shapes. Then drives two paths, each with
-the kernels' launch counts set to 0 just before it and read just after:
+PyTorch version at the main paths' shapes. Then drives three paths, each
+with the kernels' launch counts set to 0 just before it and read just after:
 
 * serving: the flagship model (tri-modal BN-Inception, 224x224 crops, 25
   segments, 2.1 s audio, MHA attention, bf16, kernels on) with seeded
@@ -17,7 +17,13 @@ the kernels' launch counts set to 0 just before it and read just after:
   the 10 bucket) and 10 through ``predict``, and one HTTP POST; the served
   logits are checked against the same weights run in float32 with the
   kernels off; latency, device profile and per-layer times; then one b=10
-  request with ``tpu.pool_impl=pallas`` against the default config's;
+  request with ``tpu.pool_impl=pallas`` and one with ``tpu.fused_stem`` +
+  ``tpu.fast_consensus`` against the default config's;
+* evaluation: the port's ``main`` in test mode at full width on a Flow
+  (.npz stacks) + Audio (WAV) fixture written here with numpy, 10-crop, the
+  fused stem, fast consensus and the challenge JSON, over a labelled and an
+  unlabelled annotation file, from a seeded ``{"model": state_dict}`` .pth;
+  clips/s from the run log, and a device profile of one more sweep;
 * training: the flagship recipe (batch 12 x 3 segments, SGD momentum 0.9
   at lr 1e-2, partialbn, clip 20, dropout 0.5, bf16, ``tpu.pool_impl=
   pallas``, seeded weights: ``model.pretrained=false``) through
@@ -35,21 +41,27 @@ no CUDA device is present or any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import csv
 import io
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
+import wave
 
 import numpy as np
 import torch
 
+from attention_based_tbn_tpu_torch import main as port_main
 from attention_based_tbn_tpu_torch.config import load_config
+from attention_based_tbn_tpu_torch.data.records import load_annotations
 from attention_based_tbn_tpu_torch.models.attention import PE_CHANNELS, positional_encoding_table
 from attention_based_tbn_tpu_torch.models.builder import build_model
 from attention_based_tbn_tpu_torch.ops import build, kernels
@@ -81,12 +93,26 @@ REPLACES = {
     "pe_block": "attention_based_tbn_tpu/ops/pallas_kernels.py:122",
     "mha": "attention_based_tbn_tpu/ops/pallas_kernels.py:232",
     "max_pool": "attention_based_tbn_tpu/ops/pallas_pool.py:88",
+    "fused_stem": "attention_based_tbn_tpu/ops/fused_stem.py:264",
+    "consensus_heads": "attention_based_tbn_tpu/ops/pallas_kernels.py:299",
 }
 SOURCES = {
     "pe_block": "attention_based_tbn_tpu_torch/ops/csrc/pe_block.cu",
     "mha": "attention_based_tbn_tpu_torch/ops/csrc/mha.cu",
     "max_pool": "attention_based_tbn_tpu_torch/ops/csrc/max_pool.cu",
+    "fused_stem": "attention_based_tbn_tpu_torch/ops/csrc/fused_stem.cu",
+    "consensus_heads": "attention_based_tbn_tpu_torch/ops/csrc/consensus_heads.cu",
 }
+# (H, W, C, input type) of each tower's stem input on the main paths: uint8
+# 224x224 RGB and 10-channel Flow, the float32 256x420 spectrogram of 2.1 s
+# audio; normalization affine per modality (RGB BGR mean, Flow 0.502).
+STEM_INPUTS = {
+    "RGB": (224, 224, 3, torch.uint8, (0.408, 0.459, 0.502)),
+    "Flow": (224, 224, 10, torch.uint8, (0.502,) * 10),
+    "Audio": (256, 420, 1, torch.float32, None),
+}
+CLASS_HEADS = (125, 352)  # verb, noun
+FUSION = 512
 # (C, H, W) per row of the four stride-2 ceil max pools of a tower (stem
 # pool1 and pool2, the passthrough of inception 3c and 4e), 224x224 crops
 # and the 256x420 spectrogram of 2.1 s audio.
@@ -248,6 +274,151 @@ def pool_step_summary(records: list, rows: int, dtype: str, layout: str) -> dict
     return {**total, "library_ms": total["plain_ms"], "bound_by": "bytes",
             "max_abs_err": max(r["max_abs_err"] for r in pools), "rows": rows,
             "dtype": dtype, "layout": layout, "pools": len(pools)}
+
+
+def stem_inputs(modality: str, rows: int, dtype, gen: torch.Generator):
+    """Seeded stem input (NHWC), BN-folded weight in ``dtype``, float32
+    bias, scale and offset of one tower, on the card."""
+    h, w, c, in_type, mean = STEM_INPUTS[modality]
+    if in_type == torch.uint8:
+        x = torch.randint(0, 256, (rows, h, w, c), generator=gen, dtype=torch.uint8)
+        scale = torch.full((c,), 1.0 / 255.0)
+        offset = -torch.tensor(mean)
+    else:
+        x = torch.randn(rows, h, w, c, generator=gen) * 4.0 - 8.0  # log-power range
+        scale, offset = torch.ones(c), torch.zeros(c)
+    weight = (torch.randn(64, c, 7, 7, generator=gen) * (2.0 / (49 * c)) ** 0.5).to(dtype)
+    bias = torch.randn(64, generator=gen) * 0.1
+    return [t.cuda() for t in (x, weight, bias, scale, offset)]
+
+
+def stem_composition(x, weight, bias, scale, offset, dtype):
+    """The port's default eval stem on the same input (the tower without
+    tpu.fused_stem): normalize in ``dtype`` on the NCHW view of the NHWC
+    input, cuDNN conv with the folded weight and the bias in ``dtype``,
+    ReLU, then pool1 (torch's ceil max pool)."""
+    xc = x.permute(0, 3, 1, 2).to(dtype)
+    xc = xc * scale.to(dtype)[:, None, None] + offset.to(dtype)[:, None, None]
+    y = torch.nn.functional.relu(
+        torch.nn.functional.conv2d(xc, weight, bias.to(dtype), 2, 3), inplace=True)
+    return kernels.ceil_max_pool2d_plain(y)
+
+
+def fused_stem_cost(modality: str, rows: int, dtype) -> tuple:
+    """Input, weight, bias and output bytes once; the conv's 2 * 49 * C
+    operations per conv output and output channel, its bias and ReLU, and
+    8 comparisons per pooled output, at the peak of ``dtype``."""
+    h, w, c, in_type, _ = STEM_INPUTS[modality]
+    elt = torch.finfo(dtype).bits // 8
+    in_elt = 1 if in_type == torch.uint8 else 4
+    conv_out = rows * 64 * (h // 2) * (w // 2)
+    pooled = rows * 64 * (h // 4) * (w // 4)
+    moved = rows * h * w * c * in_elt + 64 * c * 49 * elt + 4 * (64 + 2 * c) + pooled * elt
+    ops = conv_out * (2 * 49 * c + 2) + 8 * pooled + 2 * rows * h * w * c
+    return bound(moved, ops, dtype)
+
+
+def check_fused_stem(failures: list) -> list:
+    """The fused stem kernel against its plain version for each tower's
+    stem at ROWS rows, fp32 (TF32 off) and bf16; plain_ms is the port's
+    default composition (conv + bias + ReLU + pool1), plain_function_ms
+    the plain version's own time. Returns one record per case."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    records = []
+    for rows in ROWS:
+        for modality in STEM_INPUTS:
+            for dtype in (torch.float32, torch.bfloat16):
+                args = stem_inputs(modality, rows, dtype, gen)
+                got = kernels.fused_stem(*args, dtype)
+                want = kernels.fused_stem_plain(*args, dtype)
+                torch.cuda.synchronize()
+                atol, rtol = KERNEL_TOL[dtype]
+                err = (got.float() - want.float()).abs().max().item()
+                tol = atol + rtol * want.float().abs().max().item()
+                ok = err <= tol and got.is_contiguous(memory_format=torch.channels_last)
+                bound_ms, bound_by = fused_stem_cost(modality, rows, dtype)
+                record = {
+                    "phase": "fused_stem_check", "modality": modality, "rows": rows,
+                    "input": str(args[0].dtype).replace("torch.", ""),
+                    "dtype": str(dtype).replace("torch.", ""), "shape": list(got.shape),
+                    "max_abs_err": err, "tolerance": tol, "ok": ok,
+                    "ms": time_ms(lambda: kernels.fused_stem(*args, dtype), 10),
+                    "plain_ms": time_ms(lambda: stem_composition(*args, dtype), 10),
+                    "plain_function_ms": time_ms(lambda: kernels.fused_stem_plain(*args, dtype), 3),
+                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                }
+                emit(record)
+                records.append(record)
+                if not ok:
+                    failures.append(f"fused_stem {modality} {rows} {dtype}: err {err} > {tol}")
+                del args, got, want
+    torch.cuda.empty_cache()
+    return records
+
+
+def stem_forward_summary(records: list, rows: int, dtype: str) -> dict:
+    """The three stems of one forward (RGB, Flow, Audio) summed."""
+    cases = [r for r in records if r["rows"] == rows and r["dtype"] == dtype]
+    total = {k: sum(r[k] for r in cases) for k in ("ms", "plain_ms", "bound_ms")}
+    return {**total, "library_ms": None, "bound_by": "operations",
+            "max_abs_err": max(r["max_abs_err"] for r in cases), "rows": rows,
+            "dtype": dtype, "stems": len(cases)}
+
+
+def consensus_cost(b: int, n: int, dtype) -> tuple:
+    """Features, weights, biases and logits once; N adds per feature and a
+    multiply-add per feature and class, on the fp32 units (the kernel
+    computes in fp32)."""
+    elt = torch.finfo(dtype).bits // 8
+    classes = sum(CLASS_HEADS)
+    moved = elt * b * n * FUSION + 4 * (classes * FUSION + classes + b * classes)
+    ops = b * n * FUSION + 2 * b * FUSION * classes
+    return bound(moved, ops, torch.float32)
+
+
+def check_consensus_heads(failures: list) -> list:
+    """The consensus + heads kernel against its plain version at (10,
+    25 | 250, 512) with the verb / noun heads, fp32 and bf16 features;
+    composition_ms is the port's fast consensus without the kernel (mean,
+    round to the compute type, Linear heads in it)."""
+    gen = torch.Generator().manual_seed(4)
+    records = []
+    for n in ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.randn(10, n, FUSION, generator=gen).relu().cuda().to(dtype)
+            weights = [(torch.randn(c, FUSION, generator=gen) * 0.03).cuda() for c in CLASS_HEADS]
+            biases = [(torch.randn(c, generator=gen) * 0.1).cuda() for c in CLASS_HEADS]
+
+            def composition():
+                pooled = feats.float().mean(dim=1).to(dtype)
+                return [torch.nn.functional.linear(pooled, w.to(dtype), v.to(dtype)).float()
+                        for w, v in zip(weights, biases)]
+
+            got = kernels.consensus_heads(feats, weights, biases)
+            want = kernels.consensus_heads_plain(feats, weights, biases)
+            torch.cuda.synchronize()
+            atol, rtol = KERNEL_TOL[torch.float32]  # fp32 arithmetic in both
+            errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+            tols = [atol + rtol * w.abs().max().item() for w in want]
+            ok = all(e <= t for e, t in zip(errs, tols))
+            bound_ms, bound_by = consensus_cost(10, n, dtype)
+            record = {
+                "phase": "consensus_heads_check", "shape": [10, n, FUSION],
+                "heads": list(CLASS_HEADS),
+                "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max(errs),
+                "tolerance": tols, "ok": ok,
+                "ms": time_ms(lambda: kernels.consensus_heads(feats, weights, biases)),
+                "plain_ms": time_ms(lambda: kernels.consensus_heads_plain(feats, weights, biases)),
+                "composition_ms": time_ms(composition), "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            emit(record)
+            records.append(record)
+            if not ok:
+                failures.append(f"consensus_heads {n} {dtype}: {errs} > {tols}")
+    return records
 
 
 def check_kernels(failures: list) -> dict:
@@ -425,6 +596,8 @@ CATEGORIES = (
     ("pe_block", ("pe_block_kernel",)),
     ("mha", ("linear_kernel", "attend_kernel")),
     ("max_pool_kernel", ("max_pool_nchw_kernel", "max_pool_nhwc_kernel")),
+    ("fused_stem", ("fused_stem_kernel",)),
+    ("consensus_heads", ("consensus_heads_kernel",)),
     ("conv", ("fprop", "convolve", "conv2d", "convolution", "winograd", "wgrad", "dgrad")),
     ("gemm", ("gemm", "gemv", "nvjet", "matmul")),
     ("pool", ("pool",)),
@@ -632,8 +805,8 @@ def train_path(card: str, failures: list):
     if launches["max_pool"] != expected_pools:
         failures.append(f"train: max_pool launched {launches['max_pool']} times, "
                         f"expected {expected_pools}")
-    for name, count in launches.items():
-        if count < 1:
+    for name in ("pe_block", "mha", "max_pool"):  # pe_block and mha in validate
+        if launches[name] < 1:
             failures.append(f"kernel {name} was not launched on the training path")
     return state, cfg, launches
 
@@ -747,14 +920,193 @@ def pallas_serving(served: ServingModel, batch: dict, want: dict, card: str,
             failures.append(f"pool_impl=pallas serving {head}: {diff} > {tol}")
     result["latency"] = bench(model, 10, 10)
     emit(result)
-    for name, count in launches.items():
-        if count < 1:
+    for name in ("pe_block", "mha", "max_pool"):
+        if launches[name] < 1:
             failures.append(f"kernel {name} was not launched serving with pool_impl=pallas")
     if launches["max_pool"] != 12:
         failures.append(f"pool_impl=pallas serving: {launches['max_pool']} pool launches, not 12")
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+FUSED_OVERRIDES = ["tpu.fused_stem=true", "tpu.fast_consensus=true"]
+
+
+def fused_serving(served: ServingModel, batch: dict, want: dict, card: str,
+                  failures: list) -> dict:
+    """One b=10 request with tpu.fused_stem and tpu.fast_consensus on the
+    served weights: bf16 logits within the drift bound of the default
+    config's, a float32 pair (TF32 off) within FP32_LOGIT_RTOL, one fused
+    stem launch per 7x7 tower and a consensus_heads launch per forward, and
+    the latency beside the default's."""
+    state = served.model.state_dict()
+    model = ServingModel(load_config(overrides=FUSED_OVERRIDES), state, device="cuda",
+                         batch_buckets=(10,))
+    kernels.reset_launch_counts()
+    out = model.predict(batch)
+    launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+    result = {"phase": "serve_fused", "gpu": card, "overrides": FUSED_OVERRIDES,
+              "launches": launches}
+    for head in ("verb", "noun"):
+        drift = rel_rmse(out[head], want[head])
+        result[head] = {"bf16_rel_rmse_vs_default": drift, "rel_rmse_bound": DRIFT_REL_RMSE}
+        if not drift < DRIFT_REL_RMSE:
+            failures.append(f"fused serving {head}: rel-RMSE {drift} >= {DRIFT_REL_RMSE}")
+    result["latency"] = bench(model, 10, 10)
+    result["default_latency"] = bench(served, 10, 10)
+    del model
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, over in (("default", []), ("fused", FUSED_OVERRIDES)):
+        cfg = load_config(overrides=["tpu.compute_dtype=float32"] + over)
+        fp32 = ServingModel(cfg, state, device="cuda", batch_buckets=(10,))
+        runs[name] = fp32.predict(batch)
+        del fp32
+        torch.cuda.empty_cache()
+    for head in ("verb", "noun"):
+        ref = runs["default"][head]
+        diff = float(np.abs(runs["fused"][head] - ref).max())
+        tol = FP32_LOGIT_RTOL * float(np.abs(ref).max()) + 1e-7
+        result[head].update({"fp32_max_abs_vs_default": diff, "fp32_tolerance": tol})
+        if not diff <= tol:
+            failures.append(f"fused serving fp32 {head}: {diff} > {tol}")
+    emit(result)
+    if launches["fused_stem"] != 3 or launches["consensus_heads"] < 1:
+        failures.append(f"fused serving launches {launches}: want 3 fused_stem, "
+                        ">= 1 consensus_heads")
+    return launches
+
+
+def write_test_fixture(root: str, videos: int, actions: int, frames: int, seed: int) -> None:
+    """A Flow + Audio Epic-Kitchens tree from numpy and the standard library:
+    per video, an .npz flow stack (256 x 342 x 10, so the test transform's
+    rescale to the shorter side 256 is a no-op) for every flow frame, as
+    links to 8 distinct stacks, and a WAV file; a labelled and an
+    unlabelled annotation CSV; a split list."""
+    rng = np.random.default_rng(seed)
+    sr, fps = 24000, 60
+    pool = os.path.join(root, "stacks")
+    os.makedirs(pool)
+    for k in range(8):
+        stack = rng.integers(0, 256, (256, 342, 10), dtype=np.uint8)
+        np.savez(os.path.join(pool, f"{k}.npz"), flow=stack)
+    os.makedirs(os.path.join(root, "audio"))
+    rows = []
+    names = [f"P{v + 1:02d}_01" for v in range(videos)]
+    for v, vid in enumerate(names):
+        flow_dir = os.path.join(root, "flow", vid)
+        os.makedirs(flow_dir)
+        for i in range(frames // 2 + 8):
+            os.symlink(os.path.join(pool, f"{(v * 3 + i) % 8}.npz"),
+                       os.path.join(flow_dir, f"frame_{i:010d}.npz"))
+        t = np.arange(int(frames / fps * sr) + sr) / sr
+        tone = 0.3 * np.sin(2 * np.pi * (300 + 40 * v) * t) + 0.05 * rng.standard_normal(t.shape)
+        with wave.open(os.path.join(root, "audio", f"{vid}.wav"), "wb") as handle:
+            handle.setnchannels(1)
+            handle.setsampwidth(2)
+            handle.setframerate(sr)
+            handle.writeframes(np.clip(tone * 32767, -32768, 32767).astype("<i2").tobytes())
+        span = frames // actions
+        for a in range(actions):
+            rows.append({"uid": len(rows), "participant_id": vid[:3], "video_id": vid,
+                         "start_timestamp": "00:00:00.00", "stop_timestamp": "00:00:01.00",
+                         "start_frame": a * span + 2, "stop_frame": (a + 1) * span - 1,
+                         "verb_class": int(rng.integers(125)),
+                         "noun_class": int(rng.integers(352)), "action_class": len(rows)})
+    os.makedirs(os.path.join(root, "annotations"))
+    for name, keys in (("labelled.csv", list(rows[0])), ("unlabelled.csv", list(rows[0])[:7])):
+        with open(os.path.join(root, "annotations", name), "w", newline="") as fh:
+            writer = csv.DictWriter(fh, keys, extrasaction="ignore")
+            writer.writeheader()
+            writer.writerows(rows)
+    with open(os.path.join(root, "split.txt"), "w") as fh:
+        fh.write("\n".join(names) + "\n")
+
+
+def run_log_lines(run_root: str, needle: str) -> list:
+    """The lines of the run logs under ``run_root`` that hold ``needle``."""
+    found = []
+    for dirpath, _, files in sorted(os.walk(run_root)):
+        for f in sorted(files):
+            if f.endswith(".log"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    found += [line.strip() for line in fh if needle in line]
+    return found
+
+
+def evaluation_path(card: str, failures: list) -> dict:
+    """The evaluation entry point at full width: the port's main in test
+    mode on a Flow (.npz) + Audio (WAV) fixture with 10-crop, the fused
+    stem, fast consensus and the challenge JSON, from a seeded {"model":
+    state_dict} .pth; launch counts set to 0 just before main and read just
+    after. Returns the launches."""
+    root = tempfile.mkdtemp(prefix=".smoke_fixture_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        start = time.perf_counter()
+        write_test_fixture(root, videos=8, actions=2, frames=240, seed=5)
+        model_over = ["data.rgb.enable=false", "model.pretrained=false"]
+        cfg = load_config(overrides=model_over)
+        model = build_model(cfg, get_modality(cfg), device="cuda", seed=11)
+        pth = os.path.join(root, "weights.pth")
+        torch.save({"model": model.state_dict()}, pth)
+        del model
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - start
+        overrides = model_over + [
+            "train.enable=false", "test.enable=true", f"data_dir={root}",
+            f"out_dir={root}/out", "exp_name=smoke", "data.flow.read_flow_pickle=true",
+            "data.flow.dir_prefix=flow", "test.ten_crop=true", "test.save_results=true",
+            "tpu.fused_stem=true", "tpu.fast_consensus=true", f"test.pre_trained={pth}",
+            "test.annotation_file=[annotations/labelled.csv, annotations/unlabelled.csv]",
+            "test.results_file=[labelled.json, unlabelled.json]",
+            f"test.vid_list={root}/split.txt", "test.batch_size=2",
+        ]
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        results = port_main.main(overrides)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+        uids = [r["uid"] for r in load_annotations(os.path.join(root, "annotations",
+                                                                "labelled.csv"))]
+        files = {}
+        for name in ("labelled.json", "unlabelled.json"):
+            with open(os.path.join(root, "out", "inferences", name)) as fh:
+                scores = json.load(fh)["results"]
+            complete = (sorted(scores) == sorted(uids) and all(
+                len(s["verb"]) == 125 and len(s["noun"]) == 352
+                and np.isfinite(list(s["verb"].values()) + list(s["noun"].values())).all()
+                for s in scores.values()))
+            files[name] = {"uids": len(scores), "complete": complete}
+            if not complete:
+                failures.append(f"test path: {name} lacks uids or 125 / 352 finite scores")
+        labelled = results[0] if results else None
+        loss_ok = labelled is not None and np.isfinite(labelled[0]["total"])
+        if not loss_ok or results[1] is not None:
+            failures.append(f"test path: labelled results {labelled}, unlabelled {results[1]}")
+        for name in ("fused_stem", "consensus_heads", "pe_block", "mha"):
+            if launches[name] < 1:
+                failures.append(f"kernel {name} was not launched on the test path")
+        throughput = run_log_lines(os.path.join(root, "out"), "Inference throughput")
+        # once more over the unlabelled file under the profiler: the device's
+        # busy share of the loader-in-the-loop sweep
+        profiled = overrides + ["test.annotation_file=[annotations/unlabelled.csv]",
+                                "test.results_file=[profiled.json]", "exp_name=profiled"]
+        profile = device_profile(lambda: (port_main.main(profiled), torch.cuda.synchronize()))
+        emit({"phase": "test_path", "gpu": card, "clips": len(uids), "files": files,
+              "setup_s": setup_s, "wall_s": wall, "launches": launches,
+              "test_loss": labelled[0] if labelled else None,
+              "test_acc": labelled[1] if labelled else None,
+              "throughput_log": throughput})
+        emit({"phase": "test_path_profile", "gpu": card, "clips": len(uids), **profile})
+        for line in throughput:
+            print(f"test path: {len(uids)} clips per file; {line.split(' : ')[-1]}", flush=True)
+        print(f"test path: wall {wall:.1f} s for both files", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -785,6 +1137,11 @@ def main(argv=None) -> int:
 
     main_case = check_kernels(failures)
     pool_records = check_max_pool(failures)
+    stem_records = check_fused_stem(failures)
+    main_case["fused_stem"] = stem_forward_summary(stem_records, ROWS[-1], "bfloat16")
+    consensus_records = check_consensus_heads(failures)
+    main_case["consensus_heads"] = next(r for r in consensus_records
+                                        if r["shape"][1] == ROWS[0] and r["dtype"] == "bfloat16")
     if args.quick:
         for failure in failures:
             print(f"FAILED: {failure}", file=sys.stderr)
@@ -809,8 +1166,13 @@ def main(argv=None) -> int:
         emit({**profile_request(model, b), "gpu": card})
         emit({**layer_times(model, b), "gpu": card})
     pallas_serving(model, batch10, out10, card, failures)
+    fused_serving(model, batch10, out10, card, failures)
     del model
     torch.cuda.empty_cache()
+
+    # evaluation path: fused_stem and consensus_heads, with pe_block and mha
+    test_launches = evaluation_path(card, failures)
+    emit({"phase": "launches", "path": "test", **test_launches})
 
     # training path: the pool kernel, and pe_block / mha in validate
     state, train_cfg, train_launches = train_path(card, failures)
@@ -827,7 +1189,9 @@ def main(argv=None) -> int:
     emit({"phase": "max_pool_train_step", **pool_case})
     main_case["max_pool"] = pool_case
     launches = {"pe_block": serve_launches["pe_block"], "mha": serve_launches["mha"],
-                "max_pool": train_launches["max_pool"]}
+                "max_pool": train_launches["max_pool"],
+                "fused_stem": test_launches["fused_stem"],
+                "consensus_heads": test_launches["consensus_heads"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": main_case[name]["max_abs_err"],

@@ -138,6 +138,18 @@ def test_bogus_pool_impl_raises_in_both_packages():
         dataclasses.replace(spec, pool_impl=impl).validate()
 
 
+def test_int8_quantize_runs_in_jax_and_is_refused_by_the_port():
+    """tpu.quantize=int8 selects int8 towers in the JAX package; the port has
+    none yet and refuses the key instead of returning bf16 logits under it."""
+    cfg, jcfg = configs(["tpu.quantize=int8"])
+    JaxTBNSpec.from_config(jcfg, ("RGB", "Audio")).validate()
+    spec = TBNSpec.from_config(cfg, ("RGB", "Audio"))
+    assert spec.quantize == "int8"
+    with pytest.raises(ValueError, match="quantize"):
+        TBNModel(spec)
+    dataclasses.replace(spec, quantize="").validate()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels_last", [False, True])
