@@ -81,24 +81,20 @@ class DataLoader:
     on a CUDA ``device``, pinned non-blocking copies to the card."""
 
     def __init__(self, dataset: VideoDataset, batch_size: int, shuffle: bool = False,
-                 num_workers: int = 8, seed: int = 0, drop_last: bool = False,
-                 prefetch: int = 2, device=None, pad_to: int = 1):
+                 num_workers: int = 8, seed: int = 0, prefetch: int = 2, device=None,
+                 pad_to: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(int(num_workers), 1)
         self.seed = seed
-        self.drop_last = drop_last
         self.prefetch = max(int(prefetch), 1)
         self.device = None if device is None else torch.device(device)
         self.pad_to = max(int(pad_to), 1)
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -112,10 +108,7 @@ class DataLoader:
 
     def _batches(self) -> List[np.ndarray]:
         order = self._index_order()
-        batches = [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
-        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
-            batches.pop()
-        return batches
+        return [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
 
     def _assemble(self, samples, indices: np.ndarray, stream) -> Tuple[Dict, Dict, Dict, Any]:
         """One (batch, targets, meta) triple, padded to the ``pad_to``
@@ -193,8 +186,7 @@ class DataLoader:
             thread.join(timeout=60)
 
 
-def create_dataloader(cfg, modality, mode: str = "train", device=None,
-                      pad_to: int = 1) -> DataLoader:
+def create_dataloader(cfg, modality, mode: str = "train", device=None) -> DataLoader:
     """The reference's create_dataloader surface (core/utils/
     create_dataloader.py): val reads the train annotation file; batch size
     and split list per mode."""
@@ -209,5 +201,4 @@ def create_dataloader(cfg, modality, mode: str = "train", device=None,
     dataset = VideoDataset(cfg, vid_list, annotation_file, modality, mode=mode)
     return DataLoader(dataset, batch_size=int(section.batch_size), shuffle=(mode == "train"),
                       num_workers=int(cfg.num_workers), seed=int(cfg.data.manual_seed),
-                      prefetch=int(cfg.get_path("tpu.prefetch", 2) or 2), device=device,
-                      pad_to=pad_to)
+                      prefetch=int(cfg.get_path("tpu.prefetch", 2) or 2), device=device)

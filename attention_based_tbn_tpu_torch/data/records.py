@@ -130,12 +130,10 @@ def read_vid_list(path: str) -> List[str]:
         return [line.strip() for line in handle if line.strip()]
 
 
-def resolve_vid_list_path(vid_list: str, repo_root: Optional[str] = None) -> str:
+def resolve_vid_list_path(vid_list: str) -> str:
     """A split-list path; a relative one is anchored at the repo root as the
     reference does (core/utils/create_dataloader.py:103-108)."""
     if os.path.isabs(vid_list):
         return vid_list
-    root = repo_root or os.path.dirname(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    )
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     return os.path.join(root, vid_list)

@@ -265,8 +265,6 @@ int fused_stem_forward(int input_code, int dtype, int device, const void* x, con
   return launch_for_input<float>(input_code, x, weight, bf, sf, of, out, batch, c, h, w, s);
 }
 
-int fused_stem_out_channels() { return kOut; }
-
 const char* fused_stem_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

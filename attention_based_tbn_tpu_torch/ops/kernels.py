@@ -62,7 +62,6 @@ _SIGNATURES = {
     },
     "fused_stem": {
         "fused_stem_forward": (_I, [_I, _I, _I] + [_P] * 6 + [_I] * 4 + [_P]),
-        "fused_stem_out_channels": (_I, []),
         "fused_stem_error_string": (ctypes.c_char_p, [_I]),
     },
     "consensus_heads": {

@@ -22,8 +22,10 @@ with the kernels' launch counts set to 0 just before it and read just after:
 * evaluation: the port's ``main`` in test mode at full width on a Flow
   (.npz stacks) + Audio (WAV) fixture written here with numpy, 10-crop, the
   fused stem, fast consensus and the challenge JSON, over a labelled and an
-  unlabelled annotation file, from a seeded ``{"model": state_dict}`` .pth;
-  clips/s from the run log, and a device profile of one more sweep;
+  unlabelled annotation file (200 clips each), from a seeded ``{"model":
+  state_dict}`` .pth; the same run with every kernel off must give the same
+  uids and scores within the bf16 drift bound; clips/s from the run logs,
+  and a device profile of one more sweep;
 * training: the flagship recipe (batch 12 x 3 segments, SGD momentum 0.9
   at lr 1e-2, partialbn, clip 20, dropout 0.5, bf16, ``tpu.pool_impl=
   pallas``, seeded weights: ``model.pretrained=false``) through
@@ -113,6 +115,13 @@ STEM_INPUTS = {
 }
 CLASS_HEADS = (125, 352)  # verb, noun
 FUSION = 512
+# The evaluation path: 2 clips x 25 segments per batch, Flow 10-cropped;
+# videos x actions clips in each of its two annotation files.
+TEST_BATCH = 2
+TEST_VIDEOS, TEST_ACTIONS = 20, 10
+TEST_STEMS = (("Flow", 500), ("Audio", 50))  # (modality, rows) of one forward's stems
+SERVE_STEMS = tuple((m, ROWS[-1]) for m in STEM_INPUTS)  # a b=10 served request's
+CONSENSUS_SHAPES = ((10, ROWS[0]), (10, ROWS[-1]), (TEST_BATCH, 10 * ROWS[0]))  # (B, N)
 # (C, H, W) per row of the four stride-2 ceil max pools of a tower (stem
 # pool1 and pool2, the passthrough of inception 3c and 4e), 224x224 crops
 # and the 256x420 spectrogram of 2.1 s audio.
@@ -320,51 +329,52 @@ def fused_stem_cost(modality: str, rows: int, dtype) -> tuple:
 
 def check_fused_stem(failures: list) -> list:
     """The fused stem kernel against its plain version for each tower's
-    stem at ROWS rows, fp32 (TF32 off) and bf16; plain_ms is the port's
-    default composition (conv + bias + ReLU + pool1), plain_function_ms
-    the plain version's own time. Returns one record per case."""
+    stem at ROWS rows and at the evaluation path's TEST_STEMS, fp32 (TF32
+    off) and bf16; plain_ms is the port's default composition (conv + bias
+    + ReLU + pool1), plain_function_ms the plain version's own time.
+    Returns one record per case."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(3)
     records = []
-    for rows in ROWS:
-        for modality in STEM_INPUTS:
-            for dtype in (torch.float32, torch.bfloat16):
-                args = stem_inputs(modality, rows, dtype, gen)
-                got = kernels.fused_stem(*args, dtype)
-                want = kernels.fused_stem_plain(*args, dtype)
-                torch.cuda.synchronize()
-                atol, rtol = KERNEL_TOL[dtype]
-                err = (got.float() - want.float()).abs().max().item()
-                tol = atol + rtol * want.float().abs().max().item()
-                ok = err <= tol and got.is_contiguous(memory_format=torch.channels_last)
-                bound_ms, bound_by = fused_stem_cost(modality, rows, dtype)
-                record = {
-                    "phase": "fused_stem_check", "modality": modality, "rows": rows,
-                    "input": str(args[0].dtype).replace("torch.", ""),
-                    "dtype": str(dtype).replace("torch.", ""), "shape": list(got.shape),
-                    "max_abs_err": err, "tolerance": tol, "ok": ok,
-                    "ms": time_ms(lambda: kernels.fused_stem(*args, dtype), 10),
-                    "plain_ms": time_ms(lambda: stem_composition(*args, dtype), 10),
-                    "plain_function_ms": time_ms(lambda: kernels.fused_stem_plain(*args, dtype), 3),
-                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-                }
-                emit(record)
-                records.append(record)
-                if not ok:
-                    failures.append(f"fused_stem {modality} {rows} {dtype}: err {err} > {tol}")
-                del args, got, want
+    cases = [(m, rows) for rows in ROWS for m in STEM_INPUTS] + list(TEST_STEMS)
+    for modality, rows in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = stem_inputs(modality, rows, dtype, gen)
+            got = kernels.fused_stem(*args, dtype)
+            want = kernels.fused_stem_plain(*args, dtype)
+            torch.cuda.synchronize()
+            atol, rtol = KERNEL_TOL[dtype]
+            err = (got.float() - want.float()).abs().max().item()
+            tol = atol + rtol * want.float().abs().max().item()
+            ok = err <= tol and got.is_contiguous(memory_format=torch.channels_last)
+            bound_ms, bound_by = fused_stem_cost(modality, rows, dtype)
+            record = {
+                "phase": "fused_stem_check", "modality": modality, "rows": rows,
+                "input": str(args[0].dtype).replace("torch.", ""),
+                "dtype": str(dtype).replace("torch.", ""), "shape": list(got.shape),
+                "max_abs_err": err, "tolerance": tol, "ok": ok,
+                "ms": time_ms(lambda: kernels.fused_stem(*args, dtype), 10),
+                "plain_ms": time_ms(lambda: stem_composition(*args, dtype), 10),
+                "plain_function_ms": time_ms(lambda: kernels.fused_stem_plain(*args, dtype), 3),
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            emit(record)
+            records.append(record)
+            if not ok:
+                failures.append(f"fused_stem {modality} {rows} {dtype}: err {err} > {tol}")
+            del args, got, want
     torch.cuda.empty_cache()
     return records
 
 
-def stem_forward_summary(records: list, rows: int, dtype: str) -> dict:
-    """The three stems of one forward (RGB, Flow, Audio) summed."""
-    cases = [r for r in records if r["rows"] == rows and r["dtype"] == dtype]
+def stem_forward_summary(records: list, stems: tuple, dtype: str) -> dict:
+    """The stems of one forward, ``stems`` as (modality, rows), summed."""
+    cases = [r for r in records if (r["modality"], r["rows"]) in stems and r["dtype"] == dtype]
     total = {k: sum(r[k] for r in cases) for k in ("ms", "plain_ms", "bound_ms")}
     return {**total, "library_ms": None, "bound_by": "operations",
-            "max_abs_err": max(r["max_abs_err"] for r in cases), "rows": rows,
-            "dtype": dtype, "stems": len(cases)}
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "stems": [[r["modality"], r["rows"]] for r in cases], "dtype": dtype}
 
 
 def consensus_cost(b: int, n: int, dtype) -> tuple:
@@ -379,15 +389,15 @@ def consensus_cost(b: int, n: int, dtype) -> tuple:
 
 
 def check_consensus_heads(failures: list) -> list:
-    """The consensus + heads kernel against its plain version at (10,
-    25 | 250, 512) with the verb / noun heads, fp32 and bf16 features;
-    composition_ms is the port's fast consensus without the kernel (mean,
-    round to the compute type, Linear heads in it)."""
+    """The consensus + heads kernel against its plain version at (B, N,
+    512) for (B, N) in CONSENSUS_SHAPES with the verb / noun heads, fp32
+    and bf16 features; composition_ms is the port's fast consensus without
+    the kernel (mean, round to the compute type, Linear heads in it)."""
     gen = torch.Generator().manual_seed(4)
     records = []
-    for n in ROWS:
+    for b, n in CONSENSUS_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            feats = torch.randn(10, n, FUSION, generator=gen).relu().cuda().to(dtype)
+            feats = torch.randn(b, n, FUSION, generator=gen).relu().cuda().to(dtype)
             weights = [(torch.randn(c, FUSION, generator=gen) * 0.03).cuda() for c in CLASS_HEADS]
             biases = [(torch.randn(c, generator=gen) * 0.1).cuda() for c in CLASS_HEADS]
 
@@ -403,9 +413,9 @@ def check_consensus_heads(failures: list) -> list:
             errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
             tols = [atol + rtol * w.abs().max().item() for w in want]
             ok = all(e <= t for e, t in zip(errs, tols))
-            bound_ms, bound_by = consensus_cost(10, n, dtype)
+            bound_ms, bound_by = consensus_cost(b, n, dtype)
             record = {
-                "phase": "consensus_heads_check", "shape": [10, n, FUSION],
+                "phase": "consensus_heads_check", "shape": [b, n, FUSION],
                 "heads": list(CLASS_HEADS),
                 "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max(errs),
                 "tolerance": tols, "ok": ok,
@@ -417,7 +427,7 @@ def check_consensus_heads(failures: list) -> list:
             emit(record)
             records.append(record)
             if not ok:
-                failures.append(f"consensus_heads {n} {dtype}: {errs} > {tols}")
+                failures.append(f"consensus_heads {b}x{n} {dtype}: {errs} > {tols}")
     return records
 
 
@@ -1035,17 +1045,29 @@ def run_log_lines(run_root: str, needle: str) -> list:
     return found
 
 
+def read_scores(path: str) -> dict:
+    """{uid: (verb scores, noun scores)} of a challenge JSON."""
+    with open(path) as fh:
+        results = json.load(fh)["results"]
+    return {uid: tuple(np.array(list(s[h].values()), np.float64) for h in ("verb", "noun"))
+            for uid, s in results.items()}
+
+
 def evaluation_path(card: str, failures: list) -> dict:
     """The evaluation entry point at full width: the port's main in test
     mode on a Flow (.npz) + Audio (WAV) fixture with 10-crop, the fused
     stem, fast consensus and the challenge JSON, from a seeded {"model":
     state_dict} .pth; launch counts set to 0 just before main and read just
-    after. Returns the launches."""
+    after. Then main again on the same fixture and .pth with the kernels off
+    (tpu.fused_stem=false, tpu.use_pallas=false): both challenge JSONs hold
+    the same uids and their scores stay within the bf16 drift bound.
+    Returns the launches."""
     root = tempfile.mkdtemp(prefix=".smoke_fixture_",
                             dir=os.path.dirname(os.path.abspath(__file__)))
     try:
         start = time.perf_counter()
-        write_test_fixture(root, videos=8, actions=2, frames=240, seed=5)
+        write_test_fixture(root, videos=TEST_VIDEOS, actions=TEST_ACTIONS,
+                           frames=120 * TEST_ACTIONS, seed=5)
         model_over = ["data.rgb.enable=false", "model.pretrained=false"]
         cfg = load_config(overrides=model_over)
         model = build_model(cfg, get_modality(cfg), device="cuda", seed=11)
@@ -1061,7 +1083,7 @@ def evaluation_path(card: str, failures: list) -> dict:
             "tpu.fused_stem=true", "tpu.fast_consensus=true", f"test.pre_trained={pth}",
             "test.annotation_file=[annotations/labelled.csv, annotations/unlabelled.csv]",
             "test.results_file=[labelled.json, unlabelled.json]",
-            f"test.vid_list={root}/split.txt", "test.batch_size=2",
+            f"test.vid_list={root}/split.txt", f"test.batch_size={TEST_BATCH}",
         ]
         kernels.reset_launch_counts()
         start = time.perf_counter()
@@ -1071,25 +1093,45 @@ def evaluation_path(card: str, failures: list) -> dict:
         launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
         uids = [r["uid"] for r in load_annotations(os.path.join(root, "annotations",
                                                                 "labelled.csv"))]
+        throughput = run_log_lines(os.path.join(root, "out"), "Inference throughput")
+        for name in ("fused_stem", "consensus_heads", "pe_block", "mha"):
+            if launches[name] < 1:
+                failures.append(f"kernel {name} was not launched on the test path")
+
+        # the same fixture and .pth with every kernel off
+        plain_over = overrides + ["tpu.fused_stem=false", "tpu.use_pallas=false",
+                                  "test.results_file=[plain_labelled.json, plain_unlabelled.json]",
+                                  "exp_name=plain"]
+        kernels.reset_launch_counts()
+        plain_results = port_main.main(plain_over)
+        plain_launches = sum(fn.launches for fn in kernels.WRAPPERS.values())
+        if plain_launches:
+            failures.append(f"test path with the kernels off launched {plain_launches} kernels")
+        plain_throughput = run_log_lines(os.path.join(root, "out", "log", "plain"),
+                                         "Inference throughput")
+
         files = {}
         for name in ("labelled.json", "unlabelled.json"):
-            with open(os.path.join(root, "out", "inferences", name)) as fh:
-                scores = json.load(fh)["results"]
-            complete = (sorted(scores) == sorted(uids) and all(
-                len(s["verb"]) == 125 and len(s["noun"]) == 352
-                and np.isfinite(list(s["verb"].values()) + list(s["noun"].values())).all()
-                for s in scores.values()))
-            files[name] = {"uids": len(scores), "complete": complete}
+            got = read_scores(os.path.join(root, "out", "inferences", name))
+            want = read_scores(os.path.join(root, "out", "inferences", "plain_" + name))
+            complete = (sorted(got) == sorted(uids) == sorted(want) and all(
+                len(v) == 125 and len(n) == 352 and np.isfinite(v).all() and np.isfinite(n).all()
+                for v, n in got.values()))
+            files[name] = {"uids": len(got), "complete": complete}
             if not complete:
                 failures.append(f"test path: {name} lacks uids or 125 / 352 finite scores")
+                continue
+            for h, head in enumerate(("verb", "noun")):
+                drift = rel_rmse(np.stack([got[u][h] for u in uids]),
+                                 np.stack([want[u][h] for u in uids]))
+                files[name][f"{head}_rel_rmse_vs_kernels_off"] = drift
+                if not drift < DRIFT_REL_RMSE:
+                    failures.append(f"test path {name} {head}: rel-RMSE {drift} vs the "
+                                    f"kernels-off run >= {DRIFT_REL_RMSE}")
         labelled = results[0] if results else None
         loss_ok = labelled is not None and np.isfinite(labelled[0]["total"])
         if not loss_ok or results[1] is not None:
             failures.append(f"test path: labelled results {labelled}, unlabelled {results[1]}")
-        for name in ("fused_stem", "consensus_heads", "pe_block", "mha"):
-            if launches[name] < 1:
-                failures.append(f"kernel {name} was not launched on the test path")
-        throughput = run_log_lines(os.path.join(root, "out"), "Inference throughput")
         # once more over the unlabelled file under the profiler: the device's
         # busy share of the loader-in-the-loop sweep
         profiled = overrides + ["test.annotation_file=[annotations/unlabelled.csv]",
@@ -1099,10 +1141,14 @@ def evaluation_path(card: str, failures: list) -> dict:
               "setup_s": setup_s, "wall_s": wall, "launches": launches,
               "test_loss": labelled[0] if labelled else None,
               "test_acc": labelled[1] if labelled else None,
-              "throughput_log": throughput})
+              "kernels_off_test_loss": (plain_results[0][0]
+                                        if plain_results and plain_results[0] else None),
+              "throughput_log": throughput, "kernels_off_throughput_log": plain_throughput})
         emit({"phase": "test_path_profile", "gpu": card, "clips": len(uids), **profile})
         for line in throughput:
             print(f"test path: {len(uids)} clips per file; {line.split(' : ')[-1]}", flush=True)
+        for line in plain_throughput:
+            print(f"test path, kernels off: {line.split(' : ')[-1]}", flush=True)
         print(f"test path: wall {wall:.1f} s for both files", flush=True)
         return launches
     finally:
@@ -1138,10 +1184,14 @@ def main(argv=None) -> int:
     main_case = check_kernels(failures)
     pool_records = check_max_pool(failures)
     stem_records = check_fused_stem(failures)
-    main_case["fused_stem"] = stem_forward_summary(stem_records, ROWS[-1], "bfloat16")
+    emit({"phase": "fused_stem_serve_forward",
+          **stem_forward_summary(stem_records, SERVE_STEMS, "bfloat16")})
+    # the two new kernels' main path is the evaluation path: its shapes
+    main_case["fused_stem"] = stem_forward_summary(stem_records, TEST_STEMS, "bfloat16")
     consensus_records = check_consensus_heads(failures)
-    main_case["consensus_heads"] = next(r for r in consensus_records
-                                        if r["shape"][1] == ROWS[0] and r["dtype"] == "bfloat16")
+    main_case["consensus_heads"] = next(
+        r for r in consensus_records
+        if tuple(r["shape"][:2]) == CONSENSUS_SHAPES[-1] and r["dtype"] == "bfloat16")
     if args.quick:
         for failure in failures:
             print(f"FAILED: {failure}", file=sys.stderr)
