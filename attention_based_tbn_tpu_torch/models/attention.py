@@ -10,7 +10,9 @@ dict (``pe.0.pe``, ``pe.1.weight``, ``pe.2.weight``,
 
 With ``use_kernels`` the eval PE block and MHA go through
 ``ops.kernels.pe_block`` / ``ops.kernels.mha``: the CUDA kernels on the card,
-their plain versions on the CPU. Without it, and always in training (the
+their plain versions on the CPU. Every path hands them the parameters
+rounded to the compute dtype (``layers.CastCache``), as the JAX package's
+call sites do. Without the kernels, and always in training (the
 kernels are inference-only, as the Pallas ones are: attention.py:98-104 and
 :163-174 of the JAX package), they run the plain compositions, through
 which autograd differentiates. Training adds dropout on the MHA's attention
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 
 from ..data.priors import gaussian_kernel
 from ..ops import kernels
-from .layers import dropout, lecun_normal_, linear, reset_linear_
+from .layers import CastCache, dropout, lecun_normal_, linear, reset_linear_
 
 PE_CHANNELS = 10  # reference model.py:64 — PositionalEncoding(10, ...)
 
@@ -67,6 +69,7 @@ class PositionalEncoding(nn.Sequential):
             nn.Conv1d(in_features + dim_size, out_features, 1),
             nn.GroupNorm(num_groups, out_features, eps=1e-5),
         )
+        self._cast = CastCache()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -76,12 +79,16 @@ class PositionalEncoding(nn.Sequential):
         self[2].reset_parameters()
 
     def forward(self, x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
-        """x (B, S, C) -> (B, S, out) in x's dtype."""
+        """x (B, S, C) -> (B, S, out) in x's dtype; the table and every
+        parameter rounded to x's dtype first, as attention.py:115-119 of the
+        JAX package rounds them."""
         conv, norm = self[1], self[2]
         table = self[0].pe[0, :, : x.shape[1]].T  # (S, dim)
+        params = self._cast.get(f"pe{x.shape[1]}", (
+            table, conv.weight.view(conv.weight.shape[0], -1), conv.bias, norm.weight,
+            norm.bias), x.dtype)
         fn = kernels.pe_block if use_kernels and not self.training else kernels.pe_block_plain
-        return fn(x, table, conv.weight.view(conv.weight.shape[0], -1), conv.bias,
-                  norm.weight, norm.bias, num_groups=norm.num_groups, eps=norm.eps)
+        return fn(x, *params, num_groups=norm.num_groups, eps=norm.eps)
 
 
 class MultiheadAttention(nn.Module):
@@ -95,6 +102,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self._cast = CastCache()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -106,10 +114,13 @@ class MultiheadAttention(nn.Module):
     def forward(self, query: torch.Tensor, keyval: torch.Tensor, use_kernels: bool,
                 generator: torch.Generator = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """query (B, E), keyval (B, S, E) -> (B, E) output and (B, 1, S)
-        head-averaged weights, both in the query's dtype. In training the
-        attention probabilities are dropped out with ``generator``'s noise."""
-        args = (query, keyval, self.in_proj_weight, self.in_proj_bias,
-                self.out_proj.weight, self.out_proj.bias, self.num_heads)
+        head-averaged weights, both in the query's dtype; the projections'
+        weights and biases rounded to it first (attention.py:181-186 of the
+        JAX package). In training the attention probabilities are dropped
+        out with ``generator``'s noise."""
+        params = self._cast.get("mha", (self.in_proj_weight, self.in_proj_bias,
+                                        self.out_proj.weight, self.out_proj.bias), query.dtype)
+        args = (query, keyval, *params, self.num_heads)
         if self.training:
             out, wts = kernels.mha_plain(
                 *args, drop=lambda p: dropout(p, self.dropout_rate, generator))

@@ -72,6 +72,33 @@ class FoldCache:
         return hit[1], hit[2]
 
 
+class CastCache:
+    """Parameters rounded to the compute dtype, as the JAX package's call
+    sites round them (``.astype(self.dtype)``), recast whenever a source
+    changed: an in-place update (``load_state_dict``, an optimizer step)
+    bumps a tensor's version, a ``.to(device)`` swaps its storage. A cached
+    forward launches no cast. While autograd records through a parameter
+    (training), the casts are taken fresh: ``.to`` is differentiable, so the
+    gradients reach the float32 parameters. At float32 the tensors pass
+    through unchanged."""
+
+    def __init__(self):
+        self._entries: Dict[str, tuple] = {}
+
+    def get(self, name: str, tensors: Tuple[torch.Tensor, ...], dtype: torch.dtype):
+        if all(t.dtype == dtype for t in tensors):
+            return tuple(tensors)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            return tuple(t.to(dtype) for t in tensors)
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in tensors)
+        hit = self._entries.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, tuple(t.to(dtype) for t in tensors))
+            self._entries[name] = hit
+        return hit[1]
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mean_offset: torch.Tensor = None,
                      row_mask: torch.Tensor = None) -> torch.Tensor:
     """BatchNorm with live batch statistics over (N, H, W) of NCHW ``x``,
@@ -124,8 +151,10 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """nn.Linear computed in ``dtype`` (the JAX package's TorchLinear)."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    """nn.Linear computed in ``dtype`` as the JAX package's TorchLinear: the
+    product rounded to ``dtype``, then the sum with the rounded bias rounded
+    again (``F.linear`` with a bias rounds once, which differs at bf16)."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
 @torch.no_grad()

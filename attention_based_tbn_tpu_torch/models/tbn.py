@@ -42,7 +42,7 @@ from ..utils.device import tf32_scope
 from .attention import MHAttention, PositionalEncoding, PrototypeAttention, UniModalAttention
 from .bn_inception import FEATURE_SIZE, BNInception
 from .heads import Classifier, Fusion
-from .layers import compute_dtype
+from .layers import CastCache, compute_dtype
 
 
 def tile_crop_rows(feature: torch.Tensor, b: int, reps: int) -> torch.Tensor:
@@ -210,6 +210,7 @@ class TBNModel(nn.Module):
             self.fusion = Fusion(n_features, 512, spec.fusion_dropout)
             n_features = 512
         self.classifier = Classifier(n_features, dict(spec.num_classes))
+        self._cast = CastCache()
         # uint8 -> (v/255 - mean)/std == v*scale + offset, per channel;
         # mean/std repeat across the Flow stack (reference Normalize).
         for m, mean, std in (("RGB", spec.rgb_mean, spec.rgb_std),
@@ -281,9 +282,11 @@ class TBNModel(nn.Module):
             fused = self.fusion(fused, dtype, generator)
         if spec.fast_consensus and use_kernels and not self.training:
             heads = list(self.classifier.items())
-            logits = consensus_heads(fused.reshape(b, n_consensus, -1),
-                                     [head.weight for _, head in heads],
-                                     [head.bias for _, head in heads])
+            # the heads' parameters rounded to the compute dtype, as TorchLinear does
+            params = self._cast.get("heads", tuple(
+                t for _, head in heads for t in (head.weight, head.bias)), dtype)
+            logits = consensus_heads(fused.reshape(b, n_consensus, -1), list(params[0::2]),
+                                     list(params[1::2]))
             out = {name: v for (name, _), v in zip(heads, logits)}
         elif spec.fast_consensus:
             pooled = fused.reshape(b, n_consensus, -1).float().mean(dim=1).to(dtype)

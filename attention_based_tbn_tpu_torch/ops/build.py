@@ -51,13 +51,20 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources(name: str):
-    return [os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(CSRC_DIR, "common.cuh")]
+def _sources(name: str, csrc: str = CSRC_DIR):
+    """The kernel's source, then every shared header under ``csrc`` (sorted),
+    any of which it may include."""
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    return [os.path.join(csrc, f"{name}.cu")] + [os.path.join(csrc, f) for f in headers]
 
 
-def library_path(name: str) -> str:
+def library_path(name: str, csrc: str = CSRC_DIR) -> str:
+    """The library's path, keyed by the flags and the contents (and names)
+    of the source and every header: an edited header never loads a stale
+    library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
+    for src in _sources(name, csrc):
+        digest.update(os.path.basename(src).encode())
         with open(src, "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
@@ -114,4 +121,4 @@ def ptxas_report(name: str) -> str:
     if not os.path.exists(path):
         return ""
     with open(path, errors="replace") as fh:
-        return "".join(line for line in fh if "ptxas" in line)
+        return "".join(line for line in fh if "ptxas" in line or "spill" in line)

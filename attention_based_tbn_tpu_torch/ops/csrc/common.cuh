@@ -20,6 +20,12 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// v rounded to T and widened back: the rounding a store to T would make.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
 // Launch-time error of the last launch (a refused launch never runs, and a
 // later synchronize would not report it).
 inline int last_launch_error() { return static_cast<int>(cudaGetLastError()); }

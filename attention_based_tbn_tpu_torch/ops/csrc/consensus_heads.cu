@@ -1,14 +1,19 @@
 // Segment consensus fused with the classifier heads: per clip, the float32
 // mean of (N, F) features over N, then each head's logits
-// pooled @ W_h^T + b_h in float32, all heads in one launch.
+// pooled @ W_h^T + b_h, all heads in one launch.
 //
 // Replaces the JAX package's ops/pallas_kernels.py:consensus_heads_pallas
 // (pallas_call at :299; reference consensus_heads_reference at :264).
 //
 // Input: features (B, N, F) float32 or bfloat16 (the Fusion output, B clips
 // of N segment rows, or N = 10 x segments under 10-crop); per head a
-// (C_h, F) float32 weight in torch layout and a (C_h,) float32 bias.
-// Output: per head (B, C_h) float32.
+// (C_h, F) weight in torch layout and a (C_h,) bias, in the features' type.
+// Output: per head (B, C_h) float32. At bfloat16 the numerics are the JAX
+// model's fast_consensus (models/tbn.py:430-440) with TorchLinear heads
+// (models/layers.py:624-625): the fp32 mean rounded to bf16, products of
+// bf16 operands accumulated in fp32, the product rounded to bf16, the sum
+// with the bias rounded again, returned as float32. At float32 every step
+// is float32 and nothing is rounded.
 //
 // Bound: bytes. Each feature is read once and each weight once per clip
 // (from L2 after the first), 2 * (F + C) operations per feature row: far
@@ -37,9 +42,10 @@ constexpr int kMaxFeatures = 4096;  // 16 KB of shared memory for the mean
 constexpr int kMaxHeads = 4;
 constexpr int kClassesPerBlock = 64;
 
+template <typename T>
 struct Heads {
-  const float* weight[kMaxHeads];
-  const float* bias[kMaxHeads];
+  const T* weight[kMaxHeads];
+  const T* bias[kMaxHeads];
   float* out[kMaxHeads];
   int classes[kMaxHeads];
   int count;
@@ -47,14 +53,14 @@ struct Heads {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-consensus_heads_kernel(const T* __restrict__ x, Heads heads, int n, int f) {
+consensus_heads_kernel(const T* __restrict__ x, Heads<T> heads, int n, int f) {
   __shared__ float pooled[kMaxFeatures];
   const int b = blockIdx.y;
   const T* xb = x + static_cast<int64_t>(b) * n * f;
   for (int i = threadIdx.x; i < f; i += kThreads) {
     float sum = 0.0f;
     for (int row = 0; row < n; ++row) sum += to_float(xb[static_cast<int64_t>(row) * f + i]);
-    pooled[i] = sum / static_cast<float>(n);
+    pooled[i] = round_to<T>(sum / static_cast<float>(n));
   }
   __syncthreads();
 
@@ -64,24 +70,45 @@ consensus_heads_kernel(const T* __restrict__ x, Heads heads, int n, int f) {
     int h = 0;
     while (h < heads.count && cls >= heads.classes[h]) cls -= heads.classes[h++];
     if (h == heads.count) break;  // past the last class; later k are too
-    const float* row = heads.weight[h] + static_cast<int64_t>(cls) * f;
+    const T* row = heads.weight[h] + static_cast<int64_t>(cls) * f;
     float dot = 0.0f;
-    for (int i = lane; i < f; i += 32) dot = fmaf(pooled[i], row[i], dot);
+    for (int i = lane; i < f; i += 32) dot = fmaf(pooled[i], to_float(row[i]), dot);
 #pragma unroll
     for (int delta = 16; delta > 0; delta >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, delta);
     if (lane == 0) {
-      heads.out[h][static_cast<int64_t>(b) * heads.classes[h] + cls] = dot + heads.bias[h][cls];
+      const float logit = round_to<T>(round_to<T>(dot) + to_float(heads.bias[h][cls]));
+      heads.out[h][static_cast<int64_t>(b) * heads.classes[h] + cls] = logit;
     }
   }
+}
+
+template <typename T>
+int launch(const void* x, const void* const* weights, const void* const* biases,
+           void* const* outs, const int* classes, int count, int batch, int n, int f,
+           cudaStream_t stream) {
+  Heads<T> heads{};
+  int total = 0;
+  for (int h = 0; h < count; ++h) {
+    heads.weight[h] = static_cast<const T*>(weights[h]);
+    heads.bias[h] = static_cast<const T*>(biases[h]);
+    heads.out[h] = static_cast<float*>(outs[h]);
+    heads.classes[h] = classes[h];
+    total += classes[h];
+  }
+  heads.count = count;
+  const dim3 grid((total + kClassesPerBlock - 1) / kClassesPerBlock, batch);
+  consensus_heads_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), heads,
+                                                          n, f);
+  return last_launch_error();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (batch, n, f) of type dtype; per head h < count: weights[h] (classes[h],
-// f), biases[h] (classes[h],) and outs[h] (batch, classes[h]), all float32.
-// f <= consensus_heads_max_features(), count <= consensus_heads_max_heads(),
+// x (batch, n, f), weights[h] (classes[h], f) and biases[h] (classes[h],)
+// of type dtype; outs[h] (batch, classes[h]) float32; h < count. f <=
+// consensus_heads_max_features(), count <= consensus_heads_max_heads(),
 // batch <= 65535 (checked by the caller). Returns 0 or a cudaError_t code.
 int consensus_heads_forward(int dtype, int device, const void* x, const void* const* weights,
                             const void* const* biases, void* const* outs, const int* classes,
@@ -91,26 +118,11 @@ int consensus_heads_forward(int dtype, int device, const void* x, const void* co
   if (count < 1 || count > kMaxHeads || f > kMaxFeatures) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Heads heads{};
-  int total = 0;
-  for (int h = 0; h < count; ++h) {
-    heads.weight[h] = static_cast<const float*>(weights[h]);
-    heads.bias[h] = static_cast<const float*>(biases[h]);
-    heads.out[h] = static_cast<float*>(outs[h]);
-    heads.classes[h] = classes[h];
-    total += classes[h];
-  }
-  heads.count = count;
-  const dim3 grid((total + kClassesPerBlock - 1) / kClassesPerBlock, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
-    consensus_heads_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), heads, n, f);
-  } else {
-    consensus_heads_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(x),
-                                                            heads, n, f);
+    return launch<__nv_bfloat16>(x, weights, biases, outs, classes, count, batch, n, f, s);
   }
-  return last_launch_error();
+  return launch<float>(x, weights, biases, outs, classes, count, batch, n, f, s);
 }
 
 int consensus_heads_max_features() { return kMaxFeatures; }

@@ -2,11 +2,15 @@
 //
 // Replaces attention_based_tbn_tpu/ops/pallas_kernels.py:pe_block_pallas
 // (the Pallas kernel at :65, pallas_call at :122). Same contract:
-//   x (B, S, C_in) fp32 or bf16; PE table (S, D) fp32, read through its
-//   strides; W (C_out, C_in + D) fp32 and bias (C_out,) fp32, the 1x1
-//   conv over [x | PE]; GroupNorm over (S x C_out/G) per sample and group
-//   with single-pass statistics, variance clamped at 0, affine; fp32
-//   accumulation; output in x's type.
+//   x (B, S, C_in) fp32 or bf16; PE table (S, D), read through its
+//   strides; W (C_out, C_in + D) and bias (C_out,), the 1x1 conv over
+//   [x | PE]; GroupNorm over (S x C_out/G) per sample and group with
+//   single-pass statistics, variance clamped at 0, affine (C_out,) scale
+//   and bias; output in x's type. The table and every parameter come in
+//   x's type: at bf16 the model rounds them once, as the JAX call site does
+//   (attention.py:115-119), and the kernel widens each to fp32 as it reads
+//   it (the Pallas kernel's .astype(f32), pallas_kernels.py:85-90 and
+//   :122-124); all arithmetic is fp32.
 //
 // Bound: at the flagship shape (B = 25 b, S = 13, 1024 -> 1024) the work is
 // a 2 B S C_in C_out-operation product over ~17 MB of operands, so the card
@@ -38,13 +42,14 @@ constexpr int kPadC = kTileC + 4;
 
 // W's columns [k0, k0 + kTileK) of output channels [c0, c0 + kTileC) into
 // shared memory, k-major; zero past column k_end.
-__device__ __forceinline__ void stage_weights(const float* __restrict__ w, int ldw, int c0,
+template <typename T>
+__device__ __forceinline__ void stage_weights(const T* __restrict__ w, int ldw, int c0,
                                               int k0, int k_end, float (&ws)[kTileK][kPadC]) {
   for (int i = threadIdx.x; i < kTileC * kTileK; i += kThreads) {
     const int kk = i % kTileK;
     const int cc = i / kTileK;
     const int k = k0 + kk;
-    ws[kk][cc] = (k < k_end) ? w[(size_t)(c0 + cc) * ldw + k] : 0.f;
+    ws[kk][cc] = (k < k_end) ? to_float(w[(size_t)(c0 + cc) * ldw + k]) : 0.f;
   }
 }
 
@@ -73,9 +78,9 @@ __device__ __forceinline__ void accumulate(const float (&xs_r)[kMaxS][kPadK],
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) pe_block_kernel(
-    const T* __restrict__ x, const float* __restrict__ pe, int pe_ss, int pe_sd,
-    const float* __restrict__ w, const float* __restrict__ bias,
-    const float* __restrict__ gamma, const float* __restrict__ beta,
+    const T* __restrict__ x, const T* __restrict__ pe, int pe_ss, int pe_sd,
+    const T* __restrict__ w, const T* __restrict__ bias,
+    const T* __restrict__ gamma, const T* __restrict__ beta,
     T* __restrict__ out, int B, int S, int c_in, int d, int c_out, int group_lanes,
     float eps) {
   __shared__ __align__(16) float xs[kRows][kMaxS][kPadK];
@@ -119,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) pe_block_kernel(
       const int s = (i / kTileK) % kMaxS;
       const int rr = i / (kTileK * kMaxS);
       const int k = k0 + kk;
-      xs[rr][s][kk] = (s < S && k < d) ? pe[s * pe_ss + k * pe_sd] : 0.f;
+      xs[rr][s][kk] = (s < S && k < d) ? to_float(pe[s * pe_ss + k * pe_sd]) : 0.f;
     }
     stage_weights(w + c_in, ldw, c0, k0, d, ws);
     __syncthreads();
@@ -136,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) pe_block_kernel(
     if (s < S) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float h = acc[s][j] + bias[c + j];
+        const float h = acc[s][j] + to_float(bias[c + j]);
         acc[s][j] = h;
         sum += h;
         sq += h * h;
@@ -155,8 +160,8 @@ __global__ void __launch_bounds__(kThreads) pe_block_kernel(
   float g[4], be[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    g[j] = gamma[c + j] * inv;
-    be[j] = beta[c + j];
+    g[j] = to_float(gamma[c + j]) * inv;
+    be[j] = to_float(beta[c + j]);
   }
 #pragma unroll
   for (int s = 0; s < kMaxS; ++s) {
@@ -169,14 +174,16 @@ __global__ void __launch_bounds__(kThreads) pe_block_kernel(
 }
 
 template <typename T>
-int launch(const void* x, const float* pe, int pe_ss, int pe_sd, const float* w,
-           const float* bias, const float* gamma, const float* beta, void* out, int B,
+int launch(const void* x, const void* pe, int pe_ss, int pe_sd, const void* w,
+           const void* bias, const void* gamma, const void* beta, void* out, int B,
            int S, int c_in, int d, int c_out, int num_groups, float eps,
            cudaStream_t stream) {
   const int group_lanes = c_out / num_groups / 4;
   const dim3 grid((B + kRows - 1) / kRows, c_out / kTileC);
   pe_block_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), pe, pe_ss, pe_sd, w, bias, gamma, beta,
+      static_cast<const T*>(x), static_cast<const T*>(pe), pe_ss, pe_sd,
+      static_cast<const T*>(w), static_cast<const T*>(bias), static_cast<const T*>(gamma),
+      static_cast<const T*>(beta),
       static_cast<T*>(out), B, S, c_in, d, c_out, group_lanes, eps);
   return last_launch_error();
 }
@@ -189,9 +196,10 @@ extern "C" {
 int pe_block_max_seq() { return kMaxS; }
 int pe_block_channel_tile() { return kTileC; }
 
-int pe_block_forward(int dtype, int device, const void* x, const float* pe, int pe_ss,
-                     int pe_sd, const float* w, const float* bias, const float* gamma,
-                     const float* beta, void* out, int B, int S, int c_in, int d,
+// x, pe, w, bias, gamma, beta and out all of type dtype.
+int pe_block_forward(int dtype, int device, const void* x, const void* pe, int pe_ss,
+                     int pe_sd, const void* w, const void* bias, const void* gamma,
+                     const void* beta, void* out, int B, int S, int c_in, int d,
                      int c_out, int num_groups, float eps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

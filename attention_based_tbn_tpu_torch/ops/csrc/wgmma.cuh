@@ -1,0 +1,128 @@
+// Hopper warpgroup matrix multiply (wgmma) plumbing shared by the bf16
+// routes of mha.cu and fused_stem.cu: the shared-memory matrix descriptor,
+// the K-major 128-byte-swizzled tile layout both kernels stage their
+// operands in, the fence / commit / wait instructions, and the one product
+// they issue, m64n64k16 with bf16 operands and fp32 accumulators. Needs the
+// sm_90a target (ops/build.py): wgmma does not exist without the "a".
+//
+// Operand layout. Both operands are K-major (k contiguous): A is (64 rows of
+// M) x K, B is (64 rows of N) x K, so the product is A @ B^T, which is
+// x @ W^T for a torch-layout (out, in) weight W. A tile holds 64 bf16 of K
+// per row (128 bytes) and any multiple of 8 rows; the 16-byte chunk c of
+// row r lies at r * 128 + ((c ^ (r % 8)) * 16): the 128-byte swizzle, which
+// keeps the eight rows of a core matrix on different banks. The pattern is
+// a function of the shared address, so a tile starts on 1024 bytes. The
+// k16 step s of a tile (s = 0..3) starts 32 * s bytes into it; 8-row groups
+// are 1024 bytes apart (the descriptor's stride byte offset); the leading
+// byte offset is unused for swizzled K-major operands.
+//
+// Trouble spots. The descriptor is the usual failure: a wrong offset or
+// swizzle mode gives wrong numbers, not a fault; chip_smoke.py --quick holds
+// one m64n64k16 product without the swizzle and a K = 64 product with it
+// against torch.matmul (mha_wgmma_probe) before the kernels are checked.
+// Shared memory written by threads (st.shared, cp.async) must be made
+// visible to the tensor cores' async proxy with proxy_fence() before the
+// barrier that precedes the wgmma. The accumulator registers must not be
+// read or written between issuing a wgmma and the wait that retires it.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+
+namespace wgmma {
+
+enum Swizzle : uint64_t { kInterleave = 0, kSwizzle128B = 1 };
+
+constexpr int kRowBytes = 128;        // 64 bf16 of K per swizzled row
+constexpr int kGroupBytes = 1024;     // 8 rows: the swizzle's repeat
+constexpr int kStepBytes = 32;        // 16 bf16 of K: one k16 step
+
+__device__ __forceinline__ uint32_t smem_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// First 1024-byte boundary at or after p (allocate 1024 bytes more).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_address(p) & 1023u)) & 1023u);
+}
+
+// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a swizzled tile.
+__device__ __forceinline__ uint32_t swizzled_offset(int row, int chunk) {
+  return static_cast<uint32_t>(row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+}
+
+// The 64-bit shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor
+// Format"): start address, leading and stride byte offsets in 16-byte
+// units, base offset 0 (tiles start on 1024 bytes), swizzle mode.
+__device__ __forceinline__ uint64_t descriptor(const void* smem, uint32_t leading_bytes,
+                                               uint32_t stride_bytes, Swizzle swizzle) {
+  uint64_t desc = (smem_address(smem) & 0x3FFFFu) >> 4;
+  desc |= static_cast<uint64_t>((leading_bytes & 0x3FFFFu) >> 4) << 16;
+  desc |= static_cast<uint64_t>((stride_bytes & 0x3FFFFu) >> 4) << 32;
+  desc |= static_cast<uint64_t>(swizzle) << 62;
+  return desc;
+}
+
+// Descriptor of k16 step `step` of a swizzled tile starting at `tile`.
+__device__ __forceinline__ uint64_t swizzled_descriptor(const uint8_t* tile, int step) {
+  return descriptor(tile + step * kStepBytes, 16, kGroupBytes, kSwizzle128B);
+}
+
+// Thread writes to shared memory -> visible to wgmma's reads.
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous product (CUTLASS's warpgroup_fence_operand).
+__device__ __forceinline__ void fence_accumulators(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, fp32) += A (64 x 16) @ B (64 x 16)^T, both K-major bf16 in
+// shared memory. Accumulator i of thread t of the warpgroup holds row
+// 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2) and column
+// 8 * (i / 4) + 2 * (t % 4) + i % 2 (accumulator_row / accumulator_col).
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ int accumulator_row(int i, int thread) {
+  return 16 * (thread / 32) + (thread % 32) / 4 + 8 * ((i / 2) % 2);
+}
+
+__device__ __forceinline__ int accumulator_col(int i, int thread) {
+  return 8 * (i / 4) + 2 * (thread % 4) + i % 2;
+}
+
+}  // namespace wgmma

@@ -23,9 +23,13 @@ cannot take it. Nothing falls back silently. Each wrapper counts its
 launches in ``<wrapper>.launches`` (one per call that reached the card), so
 a run can show that it went through the kernels.
 
-Weights arrive in torch layout ((out, in) matrices, fp32); activations are
-fp32 or bf16. The plain versions compute in fp32 and return the input's
-type, which is what the kernels do.
+Activations are fp32 or bf16, and so are the parameters of ``pe_block``,
+``mha`` and ``consensus_heads``: in the activations' type, in torch layout
+((out, in) matrices). At bf16 the model hands them rounded once, as the
+JAX package's call sites round theirs (``models/layers.CastCache``); the
+kernels and the plain versions widen them to fp32 and compute in fp32.
+``fused_stem`` takes its weight in the compute type and its bias and
+input affine in fp32. The plain versions return what the kernels return.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_BF16 = torch.bfloat16
 # C signatures of csrc/*.cu's exported functions: (restype, argtypes).
 _SIGNATURES = {
     "pe_block": {
@@ -54,6 +59,8 @@ _SIGNATURES = {
         "mha_forward": (_I, [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _P]),
         "mha_max_heads": (_I, []),
         "mha_max_seq": (_I, []),
+        "mha_bf16_tile": (_I, []),
+        "mha_wgmma_probe": (_I, [_I, _I, _P, _P, _P, _P]),
         "mha_error_string": (ctypes.c_char_p, [_I]),
     },
     "max_pool": {
@@ -128,13 +135,13 @@ def pe_block(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
     _check_activation("pe_block", x)
     for name, t in (("conv_weight", conv_weight), ("conv_bias", conv_bias),
                     ("gn_scale", gn_scale), ("gn_bias", gn_bias)):
-        _check_param("pe_block", name, t, x.device)
+        _check_param("pe_block", name, t, x.device, x.dtype)
     if conv_bias.shape != (c_out,) or gn_scale.shape != (c_out,) or gn_bias.shape != (c_out,):
         raise ValueError("pe_block: conv_bias, gn_scale and gn_bias must be (C_out,)")
     # The kernel reads the table through its strides (the model passes a
     # transposed view of its buffer), so it need not be contiguous.
-    if pe_table.device != x.device or pe_table.dtype != torch.float32:
-        raise ValueError(f"pe_block: pe_table must be float32 on {x.device}")
+    if pe_table.device != x.device or pe_table.dtype != x.dtype:
+        raise ValueError(f"pe_block: pe_table must be {x.dtype} on {x.device}")
 
     out = torch.empty_like(x)
     err = lib.pe_block_forward(
@@ -158,7 +165,9 @@ def mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
               out_proj_bias, num_heads: int, drop=None):
     """Single-query MHA, (B, E) x (B, S, E) -> ((B, E), (B, S) head-averaged
     weights). ``in_proj_weight`` packs [Wq; Wk; Wv] like torch's
-    MultiheadAttention. Mirrors ``mha_reference`` of the JAX package.
+    MultiheadAttention. Mirrors ``mha_reference`` of the JAX package, in
+    the Pallas kernel's arithmetic: parameters widened to fp32, q, k and v
+    in fp32, logits scaled after the dot product.
 
     ``drop`` (training only; the kernel has none): a function applied to the
     (B, H, S) attention probabilities before the weighted sum, i.e. dropout;
@@ -172,7 +181,8 @@ def mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
     q = (query.float() @ wq.T + bq).view(b, num_heads, hd)
     k = (kv @ wk.T + bk).view(b, s, num_heads, hd)
     v = (kv @ wv.T + bv).view(b, s, num_heads, hd)
-    logits = torch.einsum("bhd,bshd->bhs", q / math.sqrt(hd), k)
+    # scaled after the dot product, as the Pallas kernel and the CUDA one
+    logits = torch.einsum("bhd,bshd->bhs", q, k) * (1.0 / math.sqrt(hd))
     probs = torch.softmax(logits, dim=-1)
     if drop is not None:
         probs = drop(probs)
@@ -212,14 +222,18 @@ def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_b
         "out_proj_bias": (out_proj_bias, (e,)),
     }
     for name, (t, shape) in shapes.items():
-        _check_param("mha", name, t, query.device)
+        _check_param("mha", name, t, query.device, query.dtype)
         if tuple(t.shape) != shape:
             raise ValueError(f"mha: {name} {tuple(t.shape)} != {shape}")
+    if query.dtype == _BF16 and e % lib.mha_bf16_tile():
+        raise ValueError(f"mha: the bf16 route needs E % {lib.mha_bf16_tile()} == 0, got {e}")
 
     f32 = dict(device=query.device, dtype=torch.float32)
     q_buf = torch.empty((b, e), **f32)
     kv_buf = torch.empty((b * s, 2 * e), **f32)
-    att_buf = torch.empty((b, e), **f32)
+    # the attended values: fp32, or at bf16 their hi | lo bf16 halves (mha.cu)
+    att_buf = (torch.empty((b, 2 * e), device=query.device, dtype=_BF16)
+               if query.dtype == _BF16 else torch.empty((b, e), **f32))
     out = torch.empty_like(query)
     wts = torch.empty((b, s), device=query.device, dtype=query.dtype)
     err = lib.mha_forward(
@@ -234,6 +248,24 @@ def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_b
 
 
 mha.launches = 0
+
+
+def wgmma_probe(a, b, swizzle: bool):
+    """(64, K) x (64, K) bf16 on the card -> (64, 64) fp32 ``a @ b.T``
+    through one warpgroup's wgmma (mha.cu): K = 16 in the interleaved
+    layout, or K = 64 in the kernels' 128-byte-swizzled layout. The check
+    of the shared-memory descriptor; counts no launch."""
+    _require_cuda(a)
+    k = 64 if swizzle else 16
+    for t in (a, b):
+        if tuple(t.shape) != (64, k) or t.dtype != _BF16 or not t.is_contiguous():
+            raise ValueError(f"wgmma_probe: operands must be contiguous (64, {k}) bf16")
+    lib = _library("mha")
+    c = torch.empty((64, 64), device=a.device, dtype=torch.float32)
+    err = lib.mha_wgmma_probe(int(swizzle), a.device.index or 0, _ptr(a), _ptr(b), _ptr(c),
+                              _stream(a))
+    _raise_on_error("wgmma_probe", lib.mha_error_string, err)
+    return c
 
 
 # --------------------------------------------------------- ceil max pool
@@ -341,6 +373,21 @@ def fused_stem_plain(x, weight, bias, input_scale, input_offset, dtype):
     return ceil_max_pool2d_plain(y).to(dtype)
 
 
+def stem_k_padded(c: int) -> int:
+    """The bf16 stem's GEMM depth: 49 C rounded up to 16 (RGB 160, Flow
+    496, Audio 64)."""
+    return -(-49 * c // 16) * 16
+
+
+def pack_stem_weight(weight):
+    """(64, C, 7, 7) -> (64, K) K-major: row o holds k = (ky * 7 + kx) * C
+    + c, then zeros up to K = ``stem_k_padded(C)``. The bf16 kernel's B
+    operand: [im2col rows in the same K order] @ packed.T is the conv."""
+    o, c = weight.shape[:2]
+    flat = weight.permute(0, 2, 3, 1).reshape(o, 49 * c)
+    return F.pad(flat, (0, stem_k_padded(c) - 49 * c)).contiguous()
+
+
 def fused_stem_shape_error(x) -> str:
     """Why the fused stem cannot take NHWC ``x`` ("" when it can): the JAX
     package's gate (7x7 stem, H and W multiples of 4) and the kernel's
@@ -377,9 +424,11 @@ def fused_stem(x, weight, bias, input_scale, input_offset, dtype):
         raise ValueError(f"fused_stem: weight must be contiguous {dtype} on {x.device}")
     for name, t, n in (("bias", bias, STEM_CHANNELS), ("input_scale", input_scale, c),
                        ("input_offset", input_offset, c)):
-        _check_param("fused_stem", name, t, x.device)
+        _check_param("fused_stem", name, t, x.device, torch.float32)
         if tuple(t.shape) != (n,):
             raise ValueError(f"fused_stem: {name} {tuple(t.shape)} != ({n},)")
+    if dtype == _BF16:
+        weight = pack_stem_weight(weight)  # the wgmma route's K-major B operand
     lib = _library("fused_stem")
     out = torch.empty((b, STEM_CHANNELS, h // 4, w // 4), device=x.device, dtype=dtype,
                       memory_format=torch.channels_last)
@@ -401,11 +450,16 @@ fused_stem.launches = 0
 
 def consensus_heads_plain(features, weights, biases):
     """(B, N, F) features -> [(B, C_h) float32 logits]: the float32 mean
-    over N, then ``pooled @ W_h.T + b_h`` in float32 per head (torch-layout
-    (C_h, F) weights). Mirrors ``consensus_heads_reference`` of the JAX
-    package."""
-    pooled = features.float().mean(dim=1)
-    return [pooled @ w.float().T + b.float() for w, b in zip(weights, biases)]
+    over N, then ``pooled @ W_h.T + b_h`` per head (torch-layout (C_h, F)
+    weights). At float32 all in float32, as ``consensus_heads_reference``
+    of the JAX package. At bf16 features (and parameters) the JAX model's
+    fast consensus with TorchLinear heads (models/tbn.py:430-440,
+    layers.py:624-625): the mean rounded to bf16, an fp32 product of the
+    bf16 operands rounded to bf16, the sum with the bias rounded again."""
+    dtype = features.dtype
+    pooled = features.float().mean(dim=1).to(dtype).float()
+    return [((pooled @ w.float().T).to(dtype).float() + b.float()).to(dtype).float()
+            for w, b in zip(weights, biases)]
 
 
 def consensus_heads(features, weights, biases):
@@ -427,8 +481,8 @@ def consensus_heads(features, weights, biases):
         raise ValueError(f"consensus_heads: {len(weights)} weights, {len(biases)} biases; "
                          f"1 to {lib.consensus_heads_max_heads()} heads")
     for w, bias in zip(weights, biases):
-        _check_param("consensus_heads", "weight", w, features.device)
-        _check_param("consensus_heads", "bias", bias, features.device)
+        _check_param("consensus_heads", "weight", w, features.device, features.dtype)
+        _check_param("consensus_heads", "bias", bias, features.device, features.dtype)
         if w.dim() != 2 or w.shape[1] != f or tuple(bias.shape) != (w.shape[0],):
             raise ValueError(f"consensus_heads: weight {tuple(w.shape)} / bias "
                              f"{tuple(bias.shape)} do not fit F={f}")
@@ -482,11 +536,14 @@ def _check_activation(fn: str, t: torch.Tensor) -> None:
         raise ValueError(f"{fn}: activations must be contiguous")
 
 
-def _check_param(fn: str, name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_param(fn: str, name: str, t: torch.Tensor, device: torch.device,
+                 dtype: torch.dtype) -> None:
+    """A parameter the kernel takes: on ``device``, of ``dtype`` (the
+    activations' type, or float32 where the contract says so), contiguous."""
     if t.device != device:
         raise ValueError(f"{fn}: {name} on {t.device}, activations on {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
 

@@ -7,9 +7,14 @@
     python3 chip_smoke.py --quick   # build and kernel checks only (no ok line)
 
 Builds the hand-written kernels from ``attention_based_tbn_tpu_torch/ops/csrc``
-(one ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version at the main paths' shapes. Then drives three paths, each
-with the kernels' launch counts set to 0 just before it and read just after:
+(one ``nvcc`` per source, all at once), counts the wgmma (HGMMA)
+instructions in each library's SASS, holds Hopper's wgmma shared-memory
+descriptor against ``torch.matmul`` (one m64n64k16 product without swizzle,
+a K = 64 one with the 128-byte swizzle the kernels use), and holds each
+kernel against its plain PyTorch version at the main paths' shapes, with
+parameters in the activations' type as the models pass them. Then drives
+three paths, each with the kernels' launch counts set to 0 just before it
+and read just after:
 
 * serving: the flagship model (tri-modal BN-Inception, 224x224 crops, 25
   segments, 2.1 s audio, MHA attention, bf16, kernels on) with seeded
@@ -84,12 +89,17 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # only in summation order over 1024-long dot products; bf16 also in the
 # final rounding of outputs up to ~8 (one bf16 ulp there is 0.03).
 KERNEL_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# The wgmma descriptor check: exact bf16 products, fp32 sums of 16 or 64
+# terms in another order than torch.matmul's.
+WGMMA_RTOL = 1e-5
 # Served (bf16, kernels) vs float32 plain logits: the repo's bf16 drift
 # bound (tests/test_bf16_drift.py). float32 kernels vs float32 plain: the
 # kernels' own fp32 error carried to the logits.
 DRIFT_REL_RMSE = 0.04
 FP32_LOGIT_RTOL = 1e-4
 ROWS = (25, 250)  # B*N at b=1 and b=10 with 25 segments
+# pe_block / mha rows: also one evaluation batch's 2 clips x 10 crops x 25
+KERNEL_ROWS = ROWS + (500,)
 S, E, HEADS = 13, 1024, 4
 REPLACES = {
     "pe_block": "attention_based_tbn_tpu/ops/pallas_kernels.py:122",
@@ -180,37 +190,39 @@ def bound(bytes_moved: float, ops: float, dtype) -> tuple:
 
 
 def kernel_inputs(rows: int, dtype, gen: torch.Generator):
-    """Seeded flagship-shape inputs of both kernels, on the card."""
+    """Seeded flagship-shape inputs of both kernels, on the card, the table
+    and the parameters in ``dtype`` as the models pass them (rounded once
+    from float32 at bf16)."""
     def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).cuda()
+        return (torch.randn(*shape, generator=gen) * scale).cuda().to(dtype)
 
-    x = rnd(rows, S, E).to(dtype)
+    x = rnd(rows, S, E)
     # the table as the model passes it: a transposed view of a (D, S) buffer
     table = positional_encoding_table(PE_CHANNELS, S)
     pe = dict(
-        pe_table=torch.from_numpy(table.T.copy()).cuda().T,
+        pe_table=torch.from_numpy(table.T.copy()).cuda().to(dtype).T,
         conv_weight=rnd(E, E + PE_CHANNELS, scale=0.03), conv_bias=rnd(E, scale=0.1),
-        gn_scale=(torch.rand(E, generator=gen) + 0.5).cuda(), gn_bias=rnd(E, scale=0.1),
+        gn_scale=(torch.rand(E, generator=gen) + 0.5).cuda().to(dtype), gn_bias=rnd(E, scale=0.1),
     )
     mha = dict(
         in_proj_weight=rnd(3 * E, E, scale=0.03), in_proj_bias=rnd(3 * E, scale=0.1),
         out_proj_weight=rnd(E, E, scale=0.03), out_proj_bias=rnd(E, scale=0.1),
     )
-    query = rnd(rows, E).to(dtype)
+    query = rnd(rows, E)
     return x, pe, query, mha
 
 
 def pe_block_cost(rows: int, dtype) -> tuple:
-    elt = torch.finfo(dtype).bits // 8
-    moved = 2 * rows * S * E * elt + 4 * (E * (E + PE_CHANNELS) + 3 * E + S * PE_CHANNELS)
+    elt = torch.finfo(dtype).bits // 8  # activations, table and parameters
+    moved = elt * (2 * rows * S * E + E * (E + PE_CHANNELS) + 3 * E + S * PE_CHANNELS)
     ops = 2 * rows * S * E * E + 2 * S * PE_CHANNELS * E + 7 * rows * S * E
     return bound(moved, ops, dtype)
 
 
 def mha_cost(rows: int, dtype) -> tuple:
     elt = torch.finfo(dtype).bits // 8
-    # query, keyval (read once: k and v come from it), out, weights; fp32 params
-    moved = elt * (2 * rows * E + rows * S * E + rows * S) + 4 * (4 * E * E + 4 * E)
+    # query, keyval (read once: k and v come from it), out, weights; params
+    moved = elt * (2 * rows * E + rows * S * E + rows * S + 4 * E * E + 4 * E)
     ops = 4 * rows * E * E + 4 * rows * S * E * E + 4 * rows * S * E
     return bound(moved, ops, dtype)
 
@@ -378,12 +390,12 @@ def stem_forward_summary(records: list, stems: tuple, dtype: str) -> dict:
 
 
 def consensus_cost(b: int, n: int, dtype) -> tuple:
-    """Features, weights, biases and logits once; N adds per feature and a
-    multiply-add per feature and class, on the fp32 units (the kernel
-    computes in fp32)."""
+    """Features, weights, biases (in the features' type) and fp32 logits
+    once; N adds per feature and a multiply-add per feature and class, on
+    the fp32 units (the kernel computes in fp32)."""
     elt = torch.finfo(dtype).bits // 8
     classes = sum(CLASS_HEADS)
-    moved = elt * b * n * FUSION + 4 * (classes * FUSION + classes + b * classes)
+    moved = elt * (b * n * FUSION + classes * FUSION + classes) + 4 * b * classes
     ops = b * n * FUSION + 2 * b * FUSION * classes
     return bound(moved, ops, torch.float32)
 
@@ -398,18 +410,20 @@ def check_consensus_heads(failures: list) -> list:
     for b, n in CONSENSUS_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             feats = torch.randn(b, n, FUSION, generator=gen).relu().cuda().to(dtype)
-            weights = [(torch.randn(c, FUSION, generator=gen) * 0.03).cuda() for c in CLASS_HEADS]
-            biases = [(torch.randn(c, generator=gen) * 0.1).cuda() for c in CLASS_HEADS]
+            # parameters in the features' type, as the model passes them
+            weights = [(torch.randn(c, FUSION, generator=gen) * 0.03).cuda().to(dtype)
+                       for c in CLASS_HEADS]
+            biases = [(torch.randn(c, generator=gen) * 0.1).cuda().to(dtype) for c in CLASS_HEADS]
 
             def composition():
                 pooled = feats.float().mean(dim=1).to(dtype)
-                return [torch.nn.functional.linear(pooled, w.to(dtype), v.to(dtype)).float()
+                return [(torch.nn.functional.linear(pooled, w) + v).float()
                         for w, v in zip(weights, biases)]
 
             got = kernels.consensus_heads(feats, weights, biases)
             want = kernels.consensus_heads_plain(feats, weights, biases)
             torch.cuda.synchronize()
-            atol, rtol = KERNEL_TOL[torch.float32]  # fp32 arithmetic in both
+            atol, rtol = KERNEL_TOL[dtype]  # at bf16 a logit may round one ulp apart
             errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
             tols = [atol + rtol * w.abs().max().item() for w in want]
             ok = all(e <= t for e, t in zip(errs, tols))
@@ -432,14 +446,14 @@ def check_consensus_heads(failures: list) -> list:
 
 
 def check_kernels(failures: list) -> dict:
-    """Each kernel against its plain version at B*N in ROWS, fp32 (TF32
-    off) and bf16. Returns the main path's case (bf16, 250 rows) per
+    """Each kernel against its plain version at B*N in KERNEL_ROWS, fp32
+    (TF32 off) and bf16. Returns the main path's case (bf16, 250 rows) per
     kernel: errors and times."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     main_case = {}
-    for rows in ROWS:
+    for rows in KERNEL_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
             x, pe, query, mha = kernel_inputs(rows, dtype, gen)
             atol, rtol = KERNEL_TOL[dtype]
@@ -473,7 +487,13 @@ def check_kernels(failures: list) -> dict:
                 emit(result)
                 if not ok:
                     failures.append(f"{name} {rows} {dtype}: {errs}")
-                if rows == ROWS[-1] and dtype == torch.bfloat16:
+                if name == "mha" and dtype == torch.bfloat16:
+                    # device time of each of the route's launches, one call
+                    prof = device_profile(lambda: (kernel_fn(), torch.cuda.synchronize()))
+                    emit({"phase": "mha_launches", "rows": rows, "dtype": "bfloat16",
+                          "device_ms": prof["device_ms"],
+                          "by_kernel": prof["top_device_events"]})
+                if rows == 250 and dtype == torch.bfloat16:
                     main_case[name] = result
     emit({"phase": "kernels", "kernels": [
         {"name": n, "status": "ported", "route": "cuda", "source": SOURCES[n]} for n in SOURCES
@@ -483,10 +503,10 @@ def check_kernels(failures: list) -> dict:
 
 def library_mha(query, keyval, mha, dtype):
     """One PyTorch call computing the same function (yardstick only): the
-    functional torch MultiheadAttention, weights cast to the input type."""
+    functional torch MultiheadAttention on the same parameters."""
     q = query[None]
     kv = keyval.transpose(0, 1)
-    w = {k: v.to(dtype) for k, v in mha.items()}
+    w = mha
 
     def call():
         return torch.nn.functional.multi_head_attention_forward(
@@ -495,6 +515,41 @@ def library_mha(query, keyval, mha, dtype):
             need_weights=True, average_attn_weights=True,
         )
     return call
+
+
+def check_wgmma(failures: list) -> None:
+    """Hopper's wgmma shared-memory descriptor (ops/csrc/wgmma.cuh) against
+    torch.matmul before any kernel uses it: one m64n64k16 product of (64,
+    16) bf16 operands in the interleaved layout (no swizzle), then a K = 64
+    product in the 128-byte-swizzled layout both bf16 kernels stage."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(6)
+    for swizzle in (False, True):
+        k = 64 if swizzle else 16
+        a, b = (torch.randn(64, k, generator=gen).to(torch.bfloat16).cuda() for _ in range(2))
+        got = kernels.wgmma_probe(a, b, swizzle)
+        want = a.float() @ b.float().T
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = WGMMA_RTOL * (1.0 + want.abs().max().item())
+        emit({"phase": "wgmma_check", "layout": "swizzle_128B" if swizzle else "interleave",
+              "shape": [64, 64, k], "max_abs_err": err, "tolerance": tol, "ok": err <= tol})
+        if not err <= tol:
+            failures.append(f"wgmma descriptor, {'128B swizzle' if swizzle else 'no swizzle'}: "
+                            f"err {err} > {tol}")
+
+
+def sass_counts() -> dict:
+    """Instructions per built library in its SASS (cuobjdump --dump-sass):
+    HGMMA is wgmma, HMMA mma.sync, FFMA the fp32 FMA units."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for name in build.KERNELS:
+        sass = subprocess.run([tool, "--dump-sass", build.library_path(name)],
+                              capture_output=True, text=True, check=True).stdout.splitlines()
+        counts[name] = {op: sum(f" {op}" in line for line in sass)
+                        for op in ("HGMMA", "HMMA", "FFMA")}
+    return counts
 
 
 def check_outputs(name: str, out: dict, b: int, failures: list) -> None:
@@ -604,9 +659,9 @@ def check_agreement(served: ServingModel, batch: dict, served_out: dict, failure
 # torch's pools; reductions (the live BatchNorm statistics, losses) last.
 CATEGORIES = (
     ("pe_block", ("pe_block_kernel",)),
-    ("mha", ("linear_kernel", "attend_kernel")),
+    ("mha", ("linear_kernel", "attend_kernel", "::gemm_kernel<")),
     ("max_pool_kernel", ("max_pool_nchw_kernel", "max_pool_nhwc_kernel")),
-    ("fused_stem", ("fused_stem_kernel",)),
+    ("fused_stem", ("fused_stem_kernel", "stem_mma_kernel")),
     ("consensus_heads", ("consensus_heads_kernel",)),
     ("conv", ("fprop", "convolve", "conv2d", "convolution", "winograd", "wgrad", "dgrad")),
     ("gemm", ("gemm", "gemv", "nvjet", "matmul")),
@@ -1174,13 +1229,19 @@ def main(argv=None) -> int:
     card = gpu_line()
     start = time.perf_counter()
     build_s = build.build()
+    sass = sass_counts()
     emit({"phase": "env", "gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": time.perf_counter() - start,
-          "build_s_by_kernel": build_s,
+          "build_s_by_kernel": build_s, "sass_instructions": sass,
           "ptxas": {n: [line.split("ptxas info    : ")[-1].strip()
-                        for line in build.ptxas_report(n).splitlines() if "Used" in line]
+                        for line in build.ptxas_report(n).splitlines()
+                        if "Used" in line or "spill" in line]
                     for n in build.KERNELS}})
+    for name in ("mha", "fused_stem"):  # their bf16 routes run on wgmma
+        if sass[name]["HGMMA"] < 1:
+            failures.append(f"{name}: no HGMMA instruction in its library's SASS")
 
+    check_wgmma(failures)
     main_case = check_kernels(failures)
     pool_records = check_max_pool(failures)
     stem_records = check_fused_stem(failures)

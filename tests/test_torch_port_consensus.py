@@ -60,14 +60,20 @@ def test_plain_matches_jax_reference_and_pallas(n):
 
 
 def test_plain_reads_bf16_features_in_fp32():
+    """At bf16 the mean over N is the fp32 mean of the widened features,
+    rounded once; the heads are then TorchLinear in bf16, as the port's
+    ``layers.linear`` computes them: the product rounded, then the sum with
+    the rounded bias."""
     feats, weights, biases = _case(seed=3)
     bf = torch.from_numpy(feats).bfloat16()
-    got = kernels.consensus_heads_plain(bf, [torch.from_numpy(w) for w in weights],
-                                        [torch.from_numpy(v) for v in biases])
-    want = kernels.consensus_heads_plain(bf.float(), [torch.from_numpy(w) for w in weights],
-                                         [torch.from_numpy(v) for v in biases])
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    w = [torch.from_numpy(a).bfloat16() for a in weights]
+    v = [torch.from_numpy(a).bfloat16() for a in biases]
+    got = kernels.consensus_heads_plain(bf, w, v)
+    pooled = bf.float().mean(dim=1).bfloat16()
+    for g, wh, vh in zip(got, w, v):
+        assert g.dtype == torch.float32
+        want = (torch.nn.functional.linear(pooled, wh) + vh).float()
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("crops", [1, 10], ids=["center", "ten_crop"])
@@ -112,10 +118,12 @@ def test_cuda_kernel_matches_plain_on_the_card(dtype):
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     feats, weights, biases = _case(b=10, n=250, f=512, classes=(125, 352))
     x = torch.from_numpy(feats).cuda().to(dtype)
-    w = [torch.from_numpy(a).cuda() for a in weights]
-    v = [torch.from_numpy(a).cuda() for a in biases]
+    w = [torch.from_numpy(a).cuda().to(dtype) for a in weights]  # parameters in x's type
+    v = [torch.from_numpy(a).cuda().to(dtype) for a in biases]
     before = kernels.consensus_heads.launches
     got = kernels.consensus_heads(x, w, v)
     assert kernels.consensus_heads.launches == before + 1
+    # bf16: the two sum in another order, so a logit may round one ulp apart
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
     for g, want in zip(got, kernels.consensus_heads_plain(x, w, v)):
-        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(g, want, rtol=rtol, atol=1e-5)

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 import jax
 import jax.numpy as jnp
 
@@ -76,6 +78,25 @@ def test_plain_bf16_matches_jax_reference():
     want = np.asarray(fused_stem_reference(*args, dtype=jnp.bfloat16), np.float32)
     got = _port_stem(kernels.fused_stem_plain, x, kernel, bias, scale, offset, torch.bfloat16)
     np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("c,k", [(3, 160), (10, 496), (1, 64)])
+def test_packed_weight_times_im2col_is_the_conv(c, k):
+    """The bf16 kernel's B operand: K order (ky, kx, c), zeros from 49 C up
+    to K (a multiple of 16). An im2col of the input in that order (F.unfold
+    regrouped, zero rows appended) times the packed weight is F.conv2d."""
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.standard_normal((2, c, 20, 24)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, c, 7, 7)).astype(np.float32))
+    packed = kernels.pack_stem_weight(w)
+    assert kernels.stem_k_padded(c) == k
+    assert packed.shape == (64, k) and packed.is_contiguous()
+    assert not packed[:, 49 * c:].any()
+    cols = F.unfold(x, 7, padding=3, stride=2)  # (B, C * 49, L): k = c * 49 + tap
+    cols = cols.view(2, c, 49, -1).transpose(1, 2).reshape(2, 49 * c, -1)
+    cols = F.pad(cols, (0, 0, 0, k - 49 * c))
+    got = (packed @ cols).view(2, 64, 10, 12)
+    torch.testing.assert_close(got, F.conv2d(x, w, None, 2, 3), rtol=1e-4, atol=1e-4)
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
@@ -164,10 +185,14 @@ def test_spec_reads_tpu_fused_stem():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain_on_the_card(dtype):
+    """RGB 224x224, Flow at the flagship 224x224 x 10 and a smaller frame,
+    and the 256x420 audio spectrogram; at bf16 the wgmma implicit GEMM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
-    for c, uint8, (h, w) in ((3, True, (224, 224)), (10, True, (64, 96)), (1, False, (256, 420))):
+    cases = ((3, True, (224, 224)), (10, True, (224, 224)), (10, True, (64, 96)),
+             (1, False, (256, 420)))
+    for c, uint8, (h, w) in cases:
         x, kernel, bias, scale, offset = _stem_case(c, uint8, seed=c, h=h, w=w)
         weight = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
         args = [torch.from_numpy(a).cuda() for a in (x, bias, scale, offset)]

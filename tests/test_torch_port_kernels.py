@@ -7,6 +7,8 @@ Tolerance: fp32 rtol 1e-4 / atol 1e-4 — the two sides differ only in
 summation order (the JAX package's own Pallas tests use the same bound).
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,7 @@ from attention_based_tbn_tpu.ops.pallas_kernels import (
     pe_block_reference,
 )
 from attention_based_tbn_tpu_torch.models.attention import positional_encoding_table
-from attention_based_tbn_tpu_torch.ops import kernels
+from attention_based_tbn_tpu_torch.ops import build, kernels
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -128,17 +130,43 @@ def test_wrappers_refuse_other_devices():
         kernels.mha(mha[0].to("meta"), mha[1].to("meta"), *mha[2:], num_heads=4)
 
 
+def test_library_path_follows_every_header(tmp_path):
+    """Editing or adding a shared header under csrc/ changes every
+    library's path, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    for name in build.KERNELS:
+        assert build.library_path(name, str(csrc)) == build.library_path(name)
+    header = csrc / "wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {name: build.library_path(name, str(csrc)) for name in build.KERNELS}
+    assert all(edited[n] != build.library_path(n) for n in build.KERNELS)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(build.library_path(n, str(csrc)) != edited[n] for n in build.KERNELS)
+
+
+def test_wrappers_name_the_parameter_dtype_they_take():
+    """At bf16 the attention kernels take bf16 parameters (the model's
+    rounded ones) and refuse float32 ones, naming the dtype they take."""
+    q, kv, *params = _port_mha_args(_mha_case(2, 8, 128, seed=9))
+    with pytest.raises(ValueError, match="must be torch.bfloat16"):
+        kernels._check_param("mha", "in_proj_weight", params[0], q.device, torch.bfloat16)
+    kernels._check_param("mha", "in_proj_weight", params[0].bfloat16(), q.device, torch.bfloat16)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [25, 500])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-def test_cuda_kernels_match_plain_on_the_card(dtype, atol):
-    """Flagship shapes (B*N 25, S 13, E 1024). |err| <= atol + rtol*max|plain|
-    with rtol = atol: fp32 summation order, plus bf16 output rounding."""
+def test_cuda_kernels_match_plain_on_the_card(dtype, atol, rows):
+    """Flagship shapes (B*N 25 and the evaluation batch's 500, S 13, E 1024),
+    parameters in the activations' type (the bf16 mha runs on wgmma).
+    |err| <= atol + rtol*max|plain| with rtol = atol: fp32 summation order,
+    plus bf16 output rounding."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
-    pe = [t.cuda() for t in _port_pe_args(_pe_case(25, 13, 1024, seed=7))]
-    pe[0] = pe[0].to(dtype)
-    mha = [t.cuda() for t in _port_mha_args(_mha_case(25, 13, 1024, seed=8))]
-    mha[0], mha[1] = mha[0].to(dtype), mha[1].to(dtype)
+    pe = [t.cuda().to(dtype) for t in _port_pe_args(_pe_case(rows, 13, 1024, seed=7))]
+    pe[1] = pe[1].T.contiguous().T  # the table as the model passes it: a strided view
+    mha = [t.cuda().to(dtype) for t in _port_mha_args(_mha_case(rows, 13, 1024, seed=8))]
     torch.backends.cuda.matmul.allow_tf32 = False
     pairs = [(kernels.pe_block(*pe), kernels.pe_block_plain(*pe))]
     pairs += list(zip(kernels.mha(*mha, num_heads=4), kernels.mha_plain(*mha, num_heads=4)))
@@ -147,3 +175,18 @@ def test_cuda_kernels_match_plain_on_the_card(dtype, atol):
         assert got.dtype == want.dtype == dtype
         err = (got.float() - want.float()).abs().max().item()
         assert err <= atol * (1 + want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swizzle", [False, True], ids=["interleave", "swizzle128"])
+def test_wgmma_descriptor_on_the_card(swizzle):
+    """One warpgroup's m64n64k16 (K = 16, no swizzle) and a K = 64 product
+    in the kernels' 128-byte-swizzled layout against torch.matmul: exact
+    bf16 products, fp32 sums in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; wgmma has no CPU mode")
+    k = 64 if swizzle else 16
+    gen = torch.Generator().manual_seed(k)
+    a, b = (torch.randn(64, k, generator=gen).bfloat16().cuda() for _ in range(2))
+    got = kernels.wgmma_probe(a, b, swizzle)
+    torch.testing.assert_close(got, a.float() @ b.float().T, rtol=1e-5, atol=1e-5)
