@@ -12,9 +12,11 @@ With ``use_kernels`` the eval PE block and MHA go through
 ``ops.kernels.pe_block`` / ``ops.kernels.mha``: the CUDA kernels on the card,
 their plain versions on the CPU. Every path hands them the parameters
 rounded to the compute dtype (``layers.CastCache``), as the JAX package's
-call sites do. Without the kernels, and always in training (the
-kernels are inference-only, as the Pallas ones are: attention.py:98-104 and
-:163-174 of the JAX package), they run the plain compositions, through
+call sites do; the bf16 PE kernel (``kernels.pe_block_bf16``) takes the
+split operands of ``kernels.pe_block_split`` instead, cached the same way.
+Without the kernels, and always in training (the kernels are
+inference-only, as the Pallas ones are: attention.py:98-104 and :163-174
+of the JAX package), they run the plain compositions, through
 which autograd differentiates. Training adds dropout on the MHA's attention
 probabilities and the straight-through gumbel-softmax of UniModal /
 Prototype attention; all noise comes from the ``torch.Generator`` the
@@ -84,11 +86,18 @@ class PositionalEncoding(nn.Sequential):
         JAX package rounds them."""
         conv, norm = self[1], self[2]
         table = self[0].pe[0, :, : x.shape[1]].T  # (S, dim)
-        params = self._cast.get(f"pe{x.shape[1]}", (
-            table, conv.weight.view(conv.weight.shape[0], -1), conv.bias, norm.weight,
-            norm.bias), x.dtype)
+        sources = (table, conv.weight.view(conv.weight.shape[0], -1), conv.bias)
+        groups = dict(num_groups=norm.num_groups, eps=norm.eps)
+        if use_kernels and not self.training and x.is_cuda and x.dtype == torch.bfloat16:
+            # the wgmma kernel's operands: W's x columns and the PE term (on
+            # the CPU, pe_block below is pe_block_plain, as with the kernels off)
+            split = self._cast.derive(f"pe{x.shape[1]}/split", sources, x.dtype,
+                                      kernels.pe_block_split)
+            scale, shift = self._cast.get("norm", (norm.weight, norm.bias), x.dtype)
+            return kernels.pe_block_bf16(x, split, scale, shift, **groups)
+        params = self._cast.get(f"pe{x.shape[1]}", sources + (norm.weight, norm.bias), x.dtype)
         fn = kernels.pe_block if use_kernels and not self.training else kernels.pe_block_plain
-        return fn(x, *params, num_groups=norm.num_groups, eps=norm.eps)
+        return fn(x, *params, **groups)
 
 
 class MultiheadAttention(nn.Module):

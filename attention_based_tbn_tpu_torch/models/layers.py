@@ -98,6 +98,19 @@ class CastCache:
             self._entries[name] = hit
         return hit[1]
 
+    def derive(self, name: str, tensors: Tuple[torch.Tensor, ...], dtype: torch.dtype, fn):
+        """``fn`` of the ``tensors`` rounded to ``dtype`` (a kernel's packed
+        operands), computed without autograd once per version of the
+        sources and cached under ``name``, so a cached forward launches no
+        copy."""
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in tensors)
+        hit = self._entries.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, fn(*(t.to(dtype) for t in tensors)))
+            self._entries[name] = hit
+        return hit[1]
+
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mean_offset: torch.Tensor = None,
                      row_mask: torch.Tensor = None) -> torch.Tensor:

@@ -237,21 +237,6 @@ struct Problems {
   int count;
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // K slice kt of the block's X rows and W rows into one stage, swizzled;
 // rows of X past M are zero-filled.
 __device__ __forceinline__ void load_stage(const Problem& p, int m0, int n0, int kt,

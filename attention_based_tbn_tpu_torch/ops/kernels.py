@@ -2,14 +2,16 @@
 
 * ``pe_block`` — concat PE -> 1x1 conv -> GroupNorm on (B, S, C) in one
   pass (csrc/pe_block.cu; replaces the JAX package's
-  ``ops/pallas_kernels.py:pe_block_pallas``).
+  ``ops/pallas_kernels.py:pe_block_pallas``); at bf16 ``pe_block_bf16``,
+  on the tensor cores, from the split operands of ``pe_block_split``.
 * ``mha`` — single-query multi-head attention with key == value, returning
   the output and the head-averaged weights (csrc/mha.cu; replaces
   ``ops/pallas_kernels.py:mha_pallas``).
 * ``ceil_max_pool2d`` — the towers' 3x3 / stride-2 / pad-0 ceil-mode max
   pool on NCHW or channels-last input (csrc/max_pool.cu; replaces
-  ``ops/pallas_pool.py:ceil_max_pool2d_pallas``), differentiable through
-  the plain pool's gradient.
+  ``ops/pallas_pool.py:ceil_max_pool2d_pallas``), differentiable: the
+  forward records each window's winning tap, and a second kernel gathers
+  the gradient from them.
 * ``fused_stem`` — the eval stem of a 7x7 tower: normalize -> 7x7/2 conv
   with BatchNorm folded in -> + float32 bias -> ReLU -> 3x3/2 ceil max pool
   (csrc/fused_stem.cu; replaces ``ops/fused_stem.py:fused_stem_pallas``).
@@ -49,10 +51,11 @@ _BF16 = torch.bfloat16
 _SIGNATURES = {
     "pe_block": {
         "pe_block_forward": (
-            _I, [_I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+            _I, [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
         ),
-        "pe_block_max_seq": (_I, []),
-        "pe_block_channel_tile": (_I, []),
+        "pe_block_forward_bf16": (_I, [_I] + [_P] * 6 + [_I] * 5 + [_F, _P]),
+        "pe_block_bf16_grid": (_I, [_I, _I, _I, _I, _P]),
+        "pe_block_limits": (_I, [_I, _P]),
         "pe_block_error_string": (ctypes.c_char_p, [_I]),
     },
     "mha": {
@@ -64,7 +67,8 @@ _SIGNATURES = {
         "mha_error_string": (ctypes.c_char_p, [_I]),
     },
     "max_pool": {
-        "max_pool_forward": (_I, [_I, _I, _P, _P] + [_I] * 7 + [_P]),
+        "max_pool_forward": (_I, [_I, _I, _P, _P, _P] + [_I] * 7 + [_P]),
+        "max_pool_backward": (_I, [_I, _I, _P, _P, _P] + [_I] * 7 + [_P]),
         "max_pool_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_stem": {
@@ -86,6 +90,27 @@ _GROUP_CHANNELS = (4, 8, 16, 32, 64)  # channels per group the kernel handles
 # --------------------------------------------------------------- PE block
 
 
+def _group_norm(h, gn_scale, gn_bias, num_groups: int, eps: float, dtype,
+                single_pass: bool):
+    """GroupNorm of float32 ``h`` (B, S, C) over S x C / num_groups per
+    sample and group, then the affine, rounded to ``dtype``. The variance
+    is two-pass (``pe_block_reference``), or with ``single_pass`` the
+    Pallas kernel's (pallas_kernels.py:92-117): sums times 1 / n,
+    E[h^2] - mean^2 clamped at 0."""
+    b, s, _ = h.shape
+    grouped = h.view(b, s, num_groups, -1)
+    if single_pass:
+        inv_n = 1.0 / (s * grouped.shape[-1])
+        mean = grouped.sum(dim=(1, 3), keepdim=True) * inv_n
+        sq = (grouped * grouped).sum(dim=(1, 3), keepdim=True) * inv_n
+        var = (sq - mean * mean).clamp_min(0)
+    else:
+        mean = grouped.mean(dim=(1, 3), keepdim=True)
+        var = (grouped - mean).square().mean(dim=(1, 3), keepdim=True)
+    normed = ((grouped - mean) * torch.rsqrt(var + eps)).view(b, s, -1)
+    return (normed * gn_scale.float() + gn_bias.float()).to(dtype)
+
+
 def pe_block_plain(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
                    num_groups: int = 64, eps: float = 1e-5):
     """(B, S, C_in) -> (B, S, C_out): concat the (S, D) PE table, 1x1 conv
@@ -94,68 +119,189 @@ def pe_block_plain(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
     b, s, _ = x.shape
     pe = pe_table.float()[None].expand(b, s, pe_table.shape[1])
     h = torch.cat([x.float(), pe], dim=-1) @ conv_weight.float().T + conv_bias.float()
-    grouped = h.view(b, s, num_groups, -1)
-    mean = grouped.mean(dim=(1, 3), keepdim=True)
-    var = (grouped - mean).square().mean(dim=(1, 3), keepdim=True)
-    normed = ((grouped - mean) * torch.rsqrt(var + eps)).view(b, s, -1)
-    return (normed * gn_scale.float() + gn_bias.float()).to(x.dtype)
+    return _group_norm(h, gn_scale, gn_bias, num_groups, eps, x.dtype, single_pass=False)
+
+
+def pe_block_split(pe_table, conv_weight, conv_bias):
+    """The bf16 kernel's operands from the conv's parameters: W's x columns
+    as a contiguous (C_out, C_in) tensor in W's type, and the batch-invariant
+    (S, C_out) float32 term PE @ W_pe^T + b, as the TPU wrapper splits
+    ``[x | PE] @ W + b`` (pallas_kernels.py:82-90; exact float32 products).
+    The model caches the pair per parameter version
+    (``layers.CastCache.derive``), so a served request makes no copy."""
+    d = pe_table.shape[1]
+    c_in = conv_weight.shape[1] - d
+    w_pe = conv_weight[:, c_in:].float()
+    pe_bias = (pe_table.float()[:, None, :] * w_pe[None]).sum(dim=-1) + conv_bias.float()
+    return conv_weight[:, :c_in].contiguous(), pe_bias.contiguous()
+
+
+def pe_block_split_plain(x, split, gn_scale, gn_bias, num_groups: int = 64,
+                         eps: float = 1e-5):
+    """:func:`pe_block_bf16`'s plain version, from :func:`pe_block_split`'s
+    ``(w_x, pe_bias)``: h = x @ w_x^T + pe_bias in float32, GroupNorm with
+    single-pass statistics, rounded to x's type: the Pallas kernel's order
+    (pallas_kernels.py:92-117)."""
+    w_x, pe_bias = split
+    h = x.float() @ w_x.float().T + pe_bias
+    return _group_norm(h, gn_scale, gn_bias, num_groups, eps, x.dtype, single_pass=True)
+
+
+# Each route's (longest sequence, multiple of C_out, multiple of C_in): the
+# rows and channels of a block (pe_block.cu). The library reports the same
+# through pe_block_limits (:func:`pe_block_library_limits`).
+PE_BLOCK_LIMITS = {torch.float32: (16, 64, 1), torch.bfloat16: (64, 64, 64)}
+
+
+def _pe_block_limits_error(x, c_out: int, gn_scale, gn_bias, num_groups: int) -> str:
+    """What both routes refuse ("" when nothing): x's shape, type and
+    contiguity, the route's limits, 4 to 64 channels per group, the
+    GroupNorm affine's shape."""
+    if x.dim() != 3:
+        return f"x must be (B, S, C_in), got {tuple(x.shape)}"
+    if x.dtype not in PE_BLOCK_LIMITS:
+        return f"dtype {x.dtype} not in {list(PE_BLOCK_LIMITS)}"
+    b, s, c_in = x.shape
+    max_seq, c_out_tile, c_in_tile = PE_BLOCK_LIMITS[x.dtype]
+    if not 1 <= s <= max_seq:
+        return f"sequence {s} outside [1, {max_seq}] at {x.dtype}"
+    if c_in % c_in_tile:
+        return f"C_in {c_in} must be a multiple of {c_in_tile} at {x.dtype}"
+    if b < 1 or c_out % c_out_tile or c_out % num_groups:
+        return f"C_out {c_out} must be a multiple of {c_out_tile} and of {num_groups} groups"
+    if c_out // num_groups not in _GROUP_CHANNELS:
+        return f"{c_out // num_groups} channels per group; the kernel takes {_GROUP_CHANNELS}"
+    for name, t in (("gn_scale", gn_scale), ("gn_bias", gn_bias)):
+        if tuple(t.shape) != (c_out,):
+            return f"{name} {tuple(t.shape)} != ({c_out},)"
+    if not x.is_contiguous():
+        return "activations must be contiguous"
+    return ""
+
+
+def pe_block_shape_error(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
+                         num_groups: int) -> str:
+    """Why :func:`pe_block`'s kernel cannot take these arguments ("" when
+    it can), checked without a card: float32 activations (bf16 ones go
+    through :func:`pe_block_bf16`), the conv's and the table's shapes, and
+    the limits of ``PE_BLOCK_LIMITS``."""
+    if x.dtype == _BF16:
+        return "at bf16 the kernel takes the split operands: call pe_block_bf16"
+    c_out = conv_weight.shape[0]
+    if x.dim() == 3:
+        s, c_in = x.shape[1:]
+        d = pe_table.shape[-1]
+        if tuple(conv_weight.shape) != (c_out, c_in + d):
+            return f"conv_weight {tuple(conv_weight.shape)} != ({c_out}, {c_in + d})"
+        if tuple(pe_table.shape) != (s, d):
+            return f"pe_table {tuple(pe_table.shape)} != ({s}, {d})"
+        if tuple(conv_bias.shape) != (c_out,):
+            return f"conv_bias {tuple(conv_bias.shape)} != ({c_out},)"
+    return _pe_block_limits_error(x, c_out, gn_scale, gn_bias, num_groups)
+
+
+def pe_block_bf16_shape_error(x, split, gn_scale, gn_bias, num_groups: int) -> str:
+    """Why :func:`pe_block_bf16`'s kernel cannot take these arguments (""
+    when it can), checked without a card: bf16 activations, the limits of
+    ``PE_BLOCK_LIMITS``, and :func:`pe_block_split`'s operands, contiguous
+    and 16-byte aligned."""
+    if x.dtype != _BF16:
+        return f"the wgmma route takes bf16 activations, got {x.dtype}: call pe_block"
+    w_x, pe_bias = split
+    c_out = w_x.shape[0]
+    problem = _pe_block_limits_error(x, c_out, gn_scale, gn_bias, num_groups)
+    if problem:
+        return problem
+    s, c_in = x.shape[1:]
+    if tuple(w_x.shape) != (c_out, c_in) or w_x.dtype != _BF16 or not w_x.is_contiguous():
+        return f"split weight must be contiguous ({c_out}, {c_in}) bf16"
+    if tuple(pe_bias.shape) != (s, c_out) or pe_bias.dtype != torch.float32 or (
+            not pe_bias.is_contiguous()):
+        return f"split PE bias must be contiguous ({s}, {c_out}) float32"
+    if x.data_ptr() % 16 or w_x.data_ptr() % 16:
+        return "x and the split weight must start on 16 bytes"
+    return ""
 
 
 def pe_block(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
              num_groups: int = 64, eps: float = 1e-5):
-    """:func:`pe_block_plain` on the CPU; the CUDA kernel on the card."""
+    """:func:`pe_block_plain` on the CPU; on the card the fp32-core kernel,
+    float32 only (the bf16 kernel is :func:`pe_block_bf16`)."""
     if x.device.type == "cpu":
         return pe_block_plain(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
                               num_groups, eps)
     _require_cuda(x)
-    lib = _library("pe_block")
-    if x.dim() != 3:
-        raise ValueError(f"pe_block: x must be (B, S, C_in), got {tuple(x.shape)}")
-    b, s, c_in = x.shape
-    c_out = conv_weight.shape[0]
-    d = pe_table.shape[-1]
-    if conv_weight.shape != (c_out, c_in + d):
-        raise ValueError(
-            f"pe_block: conv_weight {tuple(conv_weight.shape)} != ({c_out}, {c_in + d})"
-        )
-    if tuple(pe_table.shape) != (s, d):
-        raise ValueError(f"pe_block: pe_table {tuple(pe_table.shape)} != ({s}, {d})")
-    if not 1 <= s <= lib.pe_block_max_seq():
-        raise ValueError(f"pe_block: sequence {s} outside [1, {lib.pe_block_max_seq()}]")
-    if c_out % lib.pe_block_channel_tile() or c_out % num_groups:
-        raise ValueError(
-            f"pe_block: C_out {c_out} must be a multiple of "
-            f"{lib.pe_block_channel_tile()} and of num_groups {num_groups}"
-        )
-    if c_out // num_groups not in _GROUP_CHANNELS:
-        raise ValueError(
-            f"pe_block: {c_out // num_groups} channels per group; the kernel "
-            f"takes {_GROUP_CHANNELS}"
-        )
-    _check_activation("pe_block", x)
+    problem = pe_block_shape_error(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
+                                   num_groups)
+    if problem:
+        raise ValueError(f"pe_block: {problem}")
     for name, t in (("conv_weight", conv_weight), ("conv_bias", conv_bias),
                     ("gn_scale", gn_scale), ("gn_bias", gn_bias)):
         _check_param("pe_block", name, t, x.device, x.dtype)
-    if conv_bias.shape != (c_out,) or gn_scale.shape != (c_out,) or gn_bias.shape != (c_out,):
-        raise ValueError("pe_block: conv_bias, gn_scale and gn_bias must be (C_out,)")
     # The kernel reads the table through its strides (the model passes a
     # transposed view of its buffer), so it need not be contiguous.
     if pe_table.device != x.device or pe_table.dtype != x.dtype:
         raise ValueError(f"pe_block: pe_table must be {x.dtype} on {x.device}")
-
+    b, s, c_in = x.shape
+    c_out, d = conv_weight.shape[0], pe_table.shape[-1]
+    lib = _library("pe_block")
     out = torch.empty_like(x)
     err = lib.pe_block_forward(
-        _DTYPE_CODES[x.dtype], x.device.index or 0,
-        _ptr(x), _ptr(pe_table), pe_table.stride(0), pe_table.stride(1), _ptr(conv_weight),
-        _ptr(conv_bias), _ptr(gn_scale), _ptr(gn_bias), _ptr(out), b, s, c_in, d, c_out,
-        num_groups, eps, _stream(x),
-    )
+        x.device.index or 0, _ptr(x), _ptr(pe_table), pe_table.stride(0),
+        pe_table.stride(1), _ptr(conv_weight), _ptr(conv_bias), _ptr(gn_scale),
+        _ptr(gn_bias), _ptr(out), b, s, c_in, d, c_out, num_groups, eps, _stream(x))
     _raise_on_error("pe_block", lib.pe_block_error_string, err)
     pe_block.launches += 1
     return out
 
 
-pe_block.launches = 0
+pe_block.launches = 0  # launches of either route (pe_block and pe_block_bf16)
+
+
+def pe_block_bf16(x, split, gn_scale, gn_bias, num_groups: int = 64, eps: float = 1e-5):
+    """:func:`pe_block_split_plain` on the CPU; on the card the wgmma
+    kernel. ``split`` is :func:`pe_block_split` of the table, conv weight
+    and bias rounded to bf16; ``gn_scale`` and ``gn_bias`` are bf16. Its
+    launches count in ``pe_block.launches``."""
+    if x.device.type == "cpu":
+        return pe_block_split_plain(x, split, gn_scale, gn_bias, num_groups, eps)
+    _require_cuda(x)
+    problem = pe_block_bf16_shape_error(x, split, gn_scale, gn_bias, num_groups)
+    if problem:
+        raise ValueError(f"pe_block_bf16: {problem}")
+    for name, t in (("gn_scale", gn_scale), ("gn_bias", gn_bias)):
+        _check_param("pe_block_bf16", name, t, x.device, _BF16)
+    w_x, pe_bias = split
+    if w_x.device != x.device or pe_bias.device != x.device:
+        raise ValueError(f"pe_block_bf16: split operands must be on {x.device}")
+    b, s, c_in = x.shape
+    lib = _library("pe_block")
+    out = torch.empty_like(x)
+    err = lib.pe_block_forward_bf16(
+        x.device.index or 0, _ptr(x), _ptr(w_x), _ptr(pe_bias), _ptr(gn_scale),
+        _ptr(gn_bias), _ptr(out), b, s, c_in, w_x.shape[0], num_groups, eps, _stream(x))
+    _raise_on_error("pe_block_bf16", lib.pe_block_error_string, err)
+    pe_block.launches += 1
+    return out
+
+
+def pe_block_grid(b: int, s: int, c_out: int, device=0):
+    """The bf16 kernel's launch on ``device`` for (B, S, C_out), from the
+    library: (row tiles, channel tiles, warpgroups per block)."""
+    grid = (ctypes.c_int * 3)()
+    lib = _library("pe_block")
+    _raise_on_error("pe_block", lib.pe_block_error_string,
+                    lib.pe_block_bf16_grid(device, b, s, c_out, grid))
+    return tuple(grid)
+
+
+def pe_block_library_limits(dtype):
+    """``PE_BLOCK_LIMITS[dtype]`` as the built library states it."""
+    limits = (ctypes.c_int * 3)()
+    lib = _library("pe_block")
+    _raise_on_error("pe_block", lib.pe_block_error_string,
+                    lib.pe_block_limits(_DTYPE_CODES[dtype], limits))
+    return tuple(limits)
 
 
 # -------------------------------------------------------------------- MHA
@@ -301,56 +447,132 @@ def pool_layout(x) -> bool:
     )
 
 
-def _launch_max_pool(x):
-    """One launch of csrc/max_pool.cu; the output has x's memory format."""
+def _check_pool_size(x) -> None:
+    """The pool kernels' limits: 32-bit index math; N and H on grid axes."""
+    if x.numel() >= 2**31 or max(x.shape[0], x.shape[2]) > _MAX_GRID_Y:
+        raise ValueError(f"ceil_max_pool2d: {tuple(x.shape)} has 2^31 elements or more, or "
+                         f"N or H above {_MAX_GRID_Y}")
+
+
+def ceil_max_pool2d_taps_plain(x):
+    """(out, taps): the pool and, per output, the window's winning tap 0-8
+    (row-major in the 3x3 window) as uint8, both in x's memory format;
+    torch's pool indices say where the winner lies (the first strict
+    maximum, or the last NaN)."""
+    out, index = F.max_pool2d(x, 3, 2, 0, ceil_mode=True, return_indices=True)
+    oh, ow = out.shape[2:]
+    w = x.shape[3]
+    oy = torch.arange(oh, device=x.device).view(oh, 1)
+    ox = torch.arange(ow, device=x.device).view(1, ow)
+    taps = (index // w - 2 * oy) * 3 + (index % w - 2 * ox)
+    fmt = torch.channels_last if pool_layout(x) else torch.contiguous_format
+    return out, taps.to(torch.uint8).contiguous(memory_format=fmt)
+
+
+def ceil_max_pool2d_backward_plain(grad, taps, input_shape, channels_last: bool):
+    """dx of the pool from the output gradient and the taps (n, c, oh, ow),
+    channels-last or NCHW as the input was: each input element sums, in float32, the gradient of the
+    windows whose tap points at it, by output row then column ascending,
+    rounded to grad's type once (torch's CUDA backward; the taps are summed
+    8 down to 0, which is that order)."""
+    n, c, h, w = input_shape
+    oh, ow = taps.shape[2:]
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    acc = torch.zeros((n, c, h, w), device=grad.device, dtype=torch.float32)
+    g = grad.float()
+    zero = torch.zeros((), device=grad.device)
+    for tap in range(8, -1, -1):
+        dy, dx = divmod(tap, 3)
+        rows, cols = min(oh, (h - dy + 1) // 2), min(ow, (w - dx + 1) // 2)
+        hit = torch.where(taps[:, :, :rows, :cols] == tap, g[:, :, :rows, :cols], zero)
+        acc[:, :, dy:dy + 2 * rows - 1:2, dx:dx + 2 * cols - 1:2] += hit
+    return acc.to(grad.dtype).contiguous(memory_format=fmt)
+
+
+def _launch_max_pool(x, with_taps: bool):
+    """One launch of csrc/max_pool.cu's forward: (out, taps or None), in
+    x's memory format."""
     channels_last = pool_layout(x)
     n, c, h, w = x.shape
     oh, ow = ceil_out_size(h), ceil_out_size(w)
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     out = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype, memory_format=fmt)
+    taps = (torch.empty((n, c, oh, ow), device=x.device, dtype=torch.uint8, memory_format=fmt)
+            if with_taps else None)
     if out.numel() == 0:
-        return out
+        return out, taps
+    _check_pool_size(x)
     lib = _library("max_pool")
     err = lib.max_pool_forward(
-        _DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x), _ptr(out), n, c, h, w, oh, ow,
-        int(channels_last), _stream(x),
+        _DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x), _ptr(out),
+        _ptr(taps) if with_taps else None, n, c, h, w, oh, ow, int(channels_last), _stream(x),
     )
     _raise_on_error("max_pool", lib.max_pool_error_string, err)
     ceil_max_pool2d.launches += 1
-    return out
+    return out, taps
+
+
+def _launch_max_pool_backward(grad, taps, input_shape, channels_last: bool):
+    """One launch of csrc/max_pool.cu's backward: dx in the forward input's
+    memory format, which the taps have. ``grad`` is taken in that format
+    (autograd may hand it in another; it is then made so, as torch's own
+    backward does)."""
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    grad = grad.contiguous(memory_format=fmt)
+    n, c, h, w = input_shape
+    oh, ow = taps.shape[2:]
+    dx = torch.empty((n, c, h, w), device=grad.device, dtype=grad.dtype, memory_format=fmt)
+    if dx.numel() == 0:
+        return dx
+    _check_pool_size(dx)
+    lib = _library("max_pool")
+    err = lib.max_pool_backward(
+        _DTYPE_CODES[grad.dtype], grad.device.index or 0, _ptr(grad), _ptr(taps), _ptr(dx),
+        n, c, h, w, oh, ow, int(channels_last), _stream(grad),
+    )
+    _raise_on_error("max_pool backward", lib.max_pool_error_string, err)
+    ceil_max_pool2d.backward_launches += 1
+    return dx
 
 
 class CeilMaxPool2d(torch.autograd.Function):
-    """The kernel's forward; the backward is the plain pool's gradient on
-    the saved input, as the JAX kernel's custom_vjp takes XLA's
-    reduce-window gradient (pallas_pool.py:140-147)."""
+    """The kernel's forward and, when autograd records through the input,
+    its tap codes (one uint8 per output); the backward is the tap kernel's
+    gather. The JAX kernel's custom_vjp takes XLA's reduce-window gradient
+    (pallas_pool.py:140-147), which this equals bit for bit (the CPU tests
+    hold the plain twins against it)."""
 
     forward_impl = staticmethod(_launch_max_pool)
+    backward_impl = staticmethod(_launch_max_pool_backward)
 
     @staticmethod
     def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return CeilMaxPool2d.forward_impl(x)
+        out, taps = CeilMaxPool2d.forward_impl(x, ctx.needs_input_grad[0])
+        if taps is not None:
+            ctx.save_for_backward(taps)
+            ctx.input_shape = tuple(x.shape)
+            ctx.channels_last = pool_layout(x)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        (x,) = ctx.saved_tensors
-        with torch.enable_grad():
-            leaf = x.detach().requires_grad_(True)
-            (dx,) = torch.autograd.grad(ceil_max_pool2d_plain(leaf), leaf, grad)
-        return dx
+        (taps,) = ctx.saved_tensors
+        return CeilMaxPool2d.backward_impl(grad, taps, ctx.input_shape, ctx.channels_last)
 
 
 def ceil_max_pool2d(x):
-    """:func:`ceil_max_pool2d_plain` on the CPU; the CUDA kernel on the card
-    (NCHW or channels-last, fp32 or bf16, no copy), differentiable."""
+    """:func:`ceil_max_pool2d_plain` on the CPU; the CUDA kernels on the
+    card (NCHW or channels-last, fp32 or bf16, no copy), differentiable."""
     if x.device.type == "cpu":
         return ceil_max_pool2d_plain(x)
     _require_cuda(x)
-    return CeilMaxPool2d.apply(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return CeilMaxPool2d.apply(x)
+    return CeilMaxPool2d.forward_impl(x, False)[0]  # no taps, no autograd node
 
 
-ceil_max_pool2d.launches = 0
+ceil_max_pool2d.launches = 0  # forward launches
+ceil_max_pool2d.backward_launches = 0
 
 # ------------------------------------------------------------- fused stem
 
@@ -510,17 +732,23 @@ WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    ceil_max_pool2d.backward_launches = 0
 
 
 # ---------------------------------------------------------------- helpers
 
 
+_bound: dict = {}  # name -> library with its C signatures set
+
+
 def _library(name: str) -> ctypes.CDLL:
-    lib = build.load(name)
-    for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        if fn.argtypes is None:
+    lib = _bound.get(name)
+    if lib is None:
+        lib = build.load(name)
+        for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
             fn.restype, fn.argtypes = restype, argtypes
+        _bound[name] = lib
     return lib
 
 

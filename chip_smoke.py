@@ -70,6 +70,7 @@ from attention_based_tbn_tpu_torch import main as port_main
 from attention_based_tbn_tpu_torch.config import load_config
 from attention_based_tbn_tpu_torch.data.records import load_annotations
 from attention_based_tbn_tpu_torch.models.attention import PE_CHANNELS, positional_encoding_table
+from attention_based_tbn_tpu_torch.models.bn_inception import BN_INCEPTION_BLOCKS, BNInception
 from attention_based_tbn_tpu_torch.models.builder import build_model
 from attention_based_tbn_tpu_torch.ops import build, kernels
 from attention_based_tbn_tpu_torch.parallel.optim import lr_at_epoch
@@ -183,6 +184,29 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn`` with the host out of the way:
+    ``iters`` calls captured in one CUDA graph, replayed between CUDA
+    events (the wrappers' host work, which event timing of back-to-back
+    calls measures when it is the longer, is not in the graph)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
 def bound(bytes_moved: float, ops: float, dtype) -> tuple:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -227,74 +251,147 @@ def mha_cost(rows: int, dtype) -> tuple:
     return bound(moved, ops, dtype)
 
 
-def max_pool_cost(rows: int, c: int, h: int, w: int, dtype) -> tuple:
-    """Each input element read once, each output written once; 8
-    comparisons per output on the fp32 ALUs (the kernel compares in fp32)."""
+def max_pool_cost(rows: int, c: int, h: int, w: int, dtype, backward: bool = False) -> tuple:
+    """Forward: each input element read once, each output written once; 8
+    comparisons per output on the fp32 ALUs (the kernel compares in fp32).
+    With ``backward``, also the training pair's extra bytes: the forward's
+    tap byte per output, and the backward's gradient and taps read once and
+    dx written once."""
     elt = torch.finfo(dtype).bits // 8
+    inputs = rows * c * h * w
     outputs = rows * c * kernels.ceil_out_size(h) * kernels.ceil_out_size(w)
-    return bound(elt * (rows * c * h * w + outputs), 8 * outputs, torch.float32)
+    moved = elt * (inputs + outputs)
+    if backward:
+        moved += outputs + elt * outputs + outputs + elt * inputs
+    return bound(moved, 8 * outputs + (4 * inputs if backward else 0), torch.float32)
+
+
+def pool_input(rows: int, c: int, h: int, w: int, dtype, gen, ties: bool):
+    """Seeded NCHW input: N(0, 1), or with ``ties`` the values 0, 1, 2 (exact
+    ties in most windows) and NaN at every 997th element and the one after
+    it (two NaNs in a window: the last one wins)."""
+    if not ties:
+        return torch.randn(rows, c, h, w, generator=gen, device="cuda", dtype=dtype)
+    x = torch.randint(0, 3, (rows, c, h, w), generator=gen, device="cuda").to(dtype)
+    flat = x.view(-1)
+    flat[::997] = float("nan")
+    flat[1::997] = float("nan")
+    return x
+
+
+def pool_pair(x, gen) -> dict:
+    """The kernels against torch on one input: the forward (NaN where torch
+    has NaN, equal elsewhere, in x's memory format) and the gradient of the
+    autograd Function (taps forward, gather backward) against torch's
+    autograd, both exact."""
+    fmt = torch.channels_last if kernels.pool_layout(x) else torch.contiguous_format
+    got, want = kernels.ceil_max_pool2d(x), kernels.ceil_max_pool2d_plain(x)
+    xg = x.detach().requires_grad_(True)
+    g = torch.randn(want.shape, generator=gen, device="cuda", dtype=x.dtype).contiguous(
+        memory_format=fmt)
+    (dx,) = torch.autograd.grad(kernels.ceil_max_pool2d(xg), xg, g)
+    (dw,) = torch.autograd.grad(kernels.ceil_max_pool2d_plain(xg), xg, g)
+    torch.cuda.synchronize()
+    same = (got == want) | (got.isnan() & want.isnan())
+    finite = ~want.isnan()
+    return {
+        "exact": bool(same.all()) and got.is_contiguous(memory_format=fmt),
+        "grad_exact": bool(torch.equal(dx, dw)) and dx.is_contiguous(memory_format=fmt),
+        "max_abs_err": (got.float() - want.float())[finite].abs().max().item(),
+        "grad_max_abs_err": (dx.float() - dw.float()).abs().max().item(),
+        "nan_outputs": int(want.isnan().sum()),
+    }
 
 
 def check_max_pool(failures: list) -> list:
-    """The pool kernel against its plain version (torch's own pool, also the
-    one-call library yardstick) at every tower pool shape, ROWS rows, fp32
-    and bf16, NCHW and channels-last: the forward must be equal, in the
-    input's memory format, and in fp32 the gradient through the autograd
-    Function must equal the plain pool's. Returns one record per case."""
+    """The pool kernels against torch's pool (the plain version, also the
+    one-call library yardstick) at every tower pool shape, POOL_ROWS rows,
+    fp32 and bf16, NCHW and channels-last: the forward must be exact, in
+    the input's memory format, and the gradient through the autograd
+    Function (the forward's taps, the gather kernel) bit-equal to torch's
+    autograd; at the train step's rows also on an input of ties and NaNs.
+    Times the forward alone and forward + backward against torch's (event
+    timing of back-to-back calls, and at the train step's rows also each
+    call's device time from a CUDA graph). Returns one record per case."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
     for rows in POOL_ROWS:
         for tower, shapes in POOL_SHAPES.items():
             for c, h, w in shapes:
                 for dtype in (torch.float32, torch.bfloat16):
-                    base = torch.randn(rows, c, h, w, generator=gen, device="cuda", dtype=dtype)
-                    for channels_last in (False, True):
-                        fmt = torch.channels_last if channels_last else torch.contiguous_format
-                        x = base.contiguous(memory_format=fmt)
-                        got, want = kernels.ceil_max_pool2d(x), kernels.ceil_max_pool2d_plain(x)
-                        torch.cuda.synchronize()
-                        exact = bool(torch.equal(got, want)) and got.is_contiguous(
-                            memory_format=fmt)
-                        err = (got.float() - want.float()).abs().max().item()
-                        grad_exact = None
-                        if dtype == torch.float32:
-                            xg = x.detach().requires_grad_(True)
-                            g = torch.randn(want.shape, generator=gen, device="cuda")
-                            (dx,) = torch.autograd.grad(kernels.ceil_max_pool2d(xg), xg, g)
-                            (dw,) = torch.autograd.grad(kernels.ceil_max_pool2d_plain(xg), xg, g)
-                            grad_exact = bool(torch.equal(dx, dw))
-                            del xg, g, dx, dw
-                        bound_ms, bound_by = max_pool_cost(rows, c, h, w, dtype)
-                        record = {
-                            "phase": "max_pool_check", "tower": tower, "rows": rows,
-                            "shape": [c, h, w], "dtype": str(dtype).replace("torch.", ""),
-                            "layout": "channels_last" if channels_last else "nchw",
-                            "exact": exact, "grad_exact": grad_exact, "max_abs_err": err,
-                            "ms": time_ms(lambda: kernels.ceil_max_pool2d(x), 20),
-                            "plain_ms": time_ms(lambda: kernels.ceil_max_pool2d_plain(x), 20),
-                            "bound_ms": bound_ms, "bound_by": bound_by,
-                        }
-                        emit(record)
-                        records.append(record)
-                        if not exact or grad_exact is False:
-                            failures.append(f"max_pool {rows}x{c}x{h}x{w} {dtype} "
-                                            f"{record['layout']}: exact={exact} "
-                                            f"grad_exact={grad_exact} err={err}")
-                    del base, x, got, want
+                    for ties in ((False, True) if rows == POOL_ROWS[0] else (False,)):
+                        base = pool_input(rows, c, h, w, dtype, gen, ties)
+                        for channels_last in (False, True):
+                            fmt = torch.channels_last if channels_last else torch.contiguous_format
+                            x = base.contiguous(memory_format=fmt)
+                            record = {
+                                "phase": "max_pool_check", "tower": tower, "rows": rows,
+                                "shape": [c, h, w], "dtype": str(dtype).replace("torch.", ""),
+                                "layout": "channels_last" if channels_last else "nchw",
+                                "input": "ties_nan" if ties else "normal", **pool_pair(x, gen),
+                            }
+                            if not ties:
+                                record.update(time_pool(x, gen))
+                                record["bound_ms"], record["bound_by"] = max_pool_cost(
+                                    rows, c, h, w, dtype)
+                                record["fwd_bwd_bound_ms"] = max_pool_cost(
+                                    rows, c, h, w, dtype, backward=True)[0]
+                            emit(record)
+                            records.append(record)
+                            if not (record["exact"] and record["grad_exact"]):
+                                failures.append(
+                                    f"max_pool {rows}x{c}x{h}x{w} {dtype} {record['layout']} "
+                                    f"{record['input']}: exact={record['exact']} "
+                                    f"grad_exact={record['grad_exact']}")
+                        del base, x
     torch.cuda.empty_cache()
-    return records
+    return [r for r in records if r["input"] == "normal"]
 
 
-def pool_step_summary(records: list, rows: int, dtype: str, layout: str) -> dict:
-    """The twelve stride-2 pools of one forward (4 per tower, RGB and Flow
-    at the visual shapes, Audio at its own) summed: ms, plain ms, bound."""
-    by_shape = {(r["tower"], tuple(r["shape"])): r for r in records
-                if r["rows"] == rows and r["dtype"] == dtype and r["layout"] == layout}
-    pools = [by_shape[(TOWERS[t], shape)] for t in TOWERS for shape in POOL_SHAPES[TOWERS[t]]]
-    total = {k: sum(r[k] for r in pools) for k in ("ms", "plain_ms", "bound_ms")}
+def time_pool(x, gen) -> dict:
+    """Device times of the kernel's forward, torch's forward, and of forward
+    + backward through each (the kernel's with its taps), by CUDA events."""
+    fmt = torch.channels_last if kernels.pool_layout(x) else torch.contiguous_format
+    xg = x.detach().requires_grad_(True)
+    out = kernels.ceil_max_pool2d_plain(x)
+    g = torch.randn(out.shape, generator=gen, device="cuda", dtype=x.dtype).contiguous(
+        memory_format=fmt)
+
+    def pair(fn):
+        return lambda: torch.autograd.grad(fn(xg), xg, g)
+
+    fns = {"": lambda: kernels.ceil_max_pool2d(x),
+           "plain_": lambda: kernels.ceil_max_pool2d_plain(x),
+           "fwd_bwd_": pair(kernels.ceil_max_pool2d),
+           "torch_fwd_bwd_": pair(kernels.ceil_max_pool2d_plain)}
+    times = {f"{k}ms": time_ms(fn, 20) for k, fn in fns.items()}
+    if x.shape[0] == POOL_ROWS[0]:  # the train step's pools: also the device's own time
+        times.update({f"{k}device_ms": graph_ms(fn) for k, fn in fns.items()})
+    return times
+
+
+def uniform_pool_calls(layout: str) -> list:
+    """(shape, layout) of the twelve stride-2 pools of one forward (4 per
+    tower, RGB and Flow at the visual shapes, Audio at its own), all in
+    one layout."""
+    return [(shape, layout) for t in TOWERS for shape in POOL_SHAPES[TOWERS[t]]]
+
+
+def pool_step_summary(records: list, rows: int, dtype: str, calls: list) -> dict:
+    """The pools of one forward, ``calls`` as (shape, layout), summed from
+    the check's records: the forward's ms, plain ms and bound, and forward
+    + backward against torch's."""
+    by_case = {(tuple(r["shape"]), r["layout"]): r for r in records
+               if r["rows"] == rows and r["dtype"] == dtype}
+    pools = [by_case[(tuple(shape), layout)] for shape, layout in calls]
+    keys = ("ms", "plain_ms", "bound_ms", "fwd_bwd_ms", "torch_fwd_bwd_ms", "fwd_bwd_bound_ms",
+            "device_ms", "plain_device_ms", "fwd_bwd_device_ms", "torch_fwd_bwd_device_ms")
+    total = {k: sum(r[k] for r in pools) for k in keys if k in pools[0]}
+    layouts = [layout for _, layout in calls]
     return {**total, "library_ms": total["plain_ms"], "bound_by": "bytes",
             "max_abs_err": max(r["max_abs_err"] for r in pools), "rows": rows,
-            "dtype": dtype, "layout": layout, "pools": len(pools)}
+            "dtype": dtype, "layouts": {k: layouts.count(k) for k in sorted(set(layouts))},
+            "pools": len(pools)}
 
 
 def stem_inputs(modality: str, rows: int, dtype, gen: torch.Generator):
@@ -457,9 +554,15 @@ def check_kernels(failures: list) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             x, pe, query, mha = kernel_inputs(rows, dtype, gen)
             atol, rtol = KERNEL_TOL[dtype]
+            split = None
+            if dtype == torch.bfloat16:  # the wgmma kernel's operands, made once as the model does
+                split = kernels.pe_block_split(pe["pe_table"], pe["conv_weight"], pe["conv_bias"])
+                gn = (pe["gn_scale"], pe["gn_bias"])
+                pe_fn = lambda: (kernels.pe_block_bf16(x, split, *gn),)  # noqa: E731
+            else:
+                pe_fn = lambda: (kernels.pe_block(x, **pe),)  # noqa: E731
             cases = {
-                "pe_block": (lambda: (kernels.pe_block(x, **pe),),
-                             lambda: (kernels.pe_block_plain(x, **pe),), None,
+                "pe_block": (pe_fn, lambda: (kernels.pe_block_plain(x, **pe),), None,
                              pe_block_cost(rows, dtype)),
                 "mha": (lambda: kernels.mha(query, x, num_heads=HEADS, **mha),
                         lambda: kernels.mha_plain(query, x, num_heads=HEADS, **mha),
@@ -484,13 +587,20 @@ def check_kernels(failures: list) -> dict:
                     "library_ms": time_ms(library_fn) if library_fn else None,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                 }
+                if name == "pe_block" and split is not None:
+                    # the kernel's own arithmetic (split PE term, single-pass
+                    # statistics): the gap left is summation order
+                    twin = kernels.pe_block_split_plain(x, split, pe["gn_scale"], pe["gn_bias"])
+                    result["max_abs_err_vs_split_plain"] = (
+                        got[0].float() - twin.float()).abs().max().item()
+                    result["grid"] = kernels.pe_block_grid(rows, S, E)
                 emit(result)
                 if not ok:
                     failures.append(f"{name} {rows} {dtype}: {errs}")
-                if name == "mha" and dtype == torch.bfloat16:
+                if dtype == torch.bfloat16:
                     # device time of each of the route's launches, one call
                     prof = device_profile(lambda: (kernel_fn(), torch.cuda.synchronize()))
-                    emit({"phase": "mha_launches", "rows": rows, "dtype": "bfloat16",
+                    emit({"phase": f"{name}_launches", "rows": rows, "dtype": "bfloat16",
                           "device_ms": prof["device_ms"],
                           "by_kernel": prof["top_device_events"]})
                 if rows == 250 and dtype == torch.bfloat16:
@@ -658,9 +768,9 @@ def check_agreement(served: ServingModel, batch: dict, served_out: dict, failure
 # come first and stay specific. The pool kernel's own names come before
 # torch's pools; reductions (the live BatchNorm statistics, losses) last.
 CATEGORIES = (
-    ("pe_block", ("pe_block_kernel",)),
+    ("pe_block", ("pe_block_kernel", "pe_block_mma_kernel")),
     ("mha", ("linear_kernel", "attend_kernel", "::gemm_kernel<")),
-    ("max_pool_kernel", ("max_pool_nchw_kernel", "max_pool_nhwc_kernel")),
+    ("max_pool_kernel", ("ceil_pool_forward", "ceil_pool_backward")),
     ("fused_stem", ("fused_stem_kernel", "stem_mma_kernel")),
     ("consensus_heads", ("consensus_heads_kernel",)),
     ("conv", ("fprop", "convolve", "conv2d", "convolution", "winograd", "wgrad", "dgrad")),
@@ -671,11 +781,12 @@ CATEGORIES = (
 )
 
 
-def device_profile(run) -> dict:
+def device_profile(run, needles=()) -> dict:
     """Device time of one call of ``run`` by kernel category and the
     longest kernels (torch.profiler's device events: kernels and copies),
     and the device's busy share of the call's host wall time (one stream,
-    so device events do not overlap). ``run`` ends in a host sync."""
+    so device events do not overlap). ``run`` ends in a host sync.
+    ``needles``: substrings of kernel names whose launches are counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -701,7 +812,10 @@ def device_profile(run) -> dict:
             "device_busy_share": device_ms / wall_ms,
             "device_events": sum(count for _, count in by_kernel.values()),
             "device_ms_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
-            "top_device_events": [[name, ms, count] for name, (ms, count) in top]}
+            "top_device_events": [[name, ms, count] for name, (ms, count) in top],
+            "device_events_matching": {
+                needle: sum(count for name, (_, count) in by_kernel.items() if needle in name)
+                for needle in needles}}
 
 
 def profile_request(model: ServingModel, b: int) -> dict:
@@ -828,6 +942,7 @@ def train_path(card: str, failures: list):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+    backward_launches = kernels.ceil_max_pool2d.backward_launches
 
     losses = [float(t) for t in totals]
     after = dict(model.named_parameters())
@@ -844,10 +959,13 @@ def train_path(card: str, failures: list):
         for tower in TOWERS}
     lr = state.optimizer.current_learning_rate()
     expected_pools = 12 * (len(TRAIN_BATCHES) + len(VAL_BATCHES))
+    expected_backward = 12 * len(TRAIN_BATCHES)  # validate takes no gradient
     result = {
         "phase": "train", "gpu": card, "steps": state.step, "seconds": seconds,
         "losses": losses, "train_loss": train_loss, "val_loss": val_loss, "val_acc": val_acc,
         "launches": launches, "expected_max_pool_launches": expected_pools,
+        "max_pool_backward_launches": backward_launches,
+        "expected_max_pool_backward_launches": expected_backward,
         "trainable_changed": sum(trainable_changed.values()),
         "trainable": len(trainable_changed), "must_change": len(must_change),
         "frozen": len(frozen_names), "frozen_bit_identical": frozen_same,
@@ -870,35 +988,62 @@ def train_path(card: str, failures: list):
     if launches["max_pool"] != expected_pools:
         failures.append(f"train: max_pool launched {launches['max_pool']} times, "
                         f"expected {expected_pools}")
+    if backward_launches != expected_backward:
+        failures.append(f"train: the pool's backward kernel launched {backward_launches} "
+                        f"times, expected {expected_backward}")
     for name in ("pe_block", "mha", "max_pool"):  # pe_block and mha in validate
         if launches[name] < 1:
             failures.append(f"kernel {name} was not launched on the training path")
     return state, cfg, launches
 
 
-def train_timing(state, cfg, card: str) -> dict:
+def set_pool_impl(model, impl: str) -> None:
+    """Every tower's max-pool lowering (``tpu.pool_impl``), switched in place."""
+    for tower in model.modules():
+        if isinstance(tower, BNInception):
+            tower.pool_impl = impl
+
+
+def step_times(step, state, batches) -> list:
+    """Host ms of each step, each ended by a synchronize, after two warm-ups."""
+    times = []
+    for batch, targets, meta in batches:
+        start = time.perf_counter()
+        step(state, batch, targets, 0, meta["batch_size"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return sorted(times[2:])
+
+
+def train_timing(state, cfg, card: str, failures: list) -> dict:
     """Host time of full steps, each ended by a synchronize, after two
-    warm-up steps; peak device memory over them."""
+    warm-up steps; peak device memory over them; then the same batches with
+    torch's pools (``pool_impl=reduce_window``), the plain step of the same
+    run. Then one step under the profiler: with the pool kernels it must
+    launch torch's max-pool forward only for the towers' stride-1 pools
+    (inception 5b's pool branch), never for the stride-2 pools the kernels
+    own."""
     step = make_train_step(cfg)
     loader = SmokeLoader(cfg, [12] * 12, int(cfg.train.num_segments),
                          int(cfg.data.train_crop_size), seed=3)
     batches = list(loader)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for batch, targets, meta in batches:
-        start = time.perf_counter()
-        step(state, batch, targets, 0, meta["batch_size"])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - start)
-    steady = sorted(times[2:])
-    p50 = steady[len(steady) // 2] * 1e3
+    steady = step_times(step, state, batches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    set_pool_impl(state.model, "reduce_window")
+    try:
+        plain = step_times(step, state, batches)
+    finally:
+        set_pool_impl(state.model, cfg.tpu.pool_impl)
+    p50 = steady[len(steady) // 2]
     result = {"phase": "train_timing", "gpu": card, "batch": 12,
               "segments": int(cfg.train.num_segments), "steps_timed": len(steady),
-              "step_ms_p50": p50, "step_ms_min": steady[0] * 1e3,
-              "step_ms_max": steady[-1] * 1e3, "clips_per_sec": 12 / (p50 / 1e3),
-              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-              "compute_dtype": cfg.tpu.compute_dtype, "pool_impl": cfg.tpu.pool_impl}
+              "step_ms_p50": p50, "step_ms_min": steady[0], "step_ms_max": steady[-1],
+              "clips_per_sec": 12 / (p50 / 1e3), "max_memory_allocated_gib": peak_gib,
+              "compute_dtype": cfg.tpu.compute_dtype, "pool_impl": cfg.tpu.pool_impl,
+              "plain_pool_step_ms_p50": plain[len(plain) // 2],
+              "plain_pool_step_ms_min": plain[0], "plain_pool_step_ms_max": plain[-1]}
     emit(result)
 
     # one more step under the profiler; the pool kernel's inputs recorded
@@ -906,9 +1051,9 @@ def train_timing(state, cfg, card: str) -> dict:
     layouts = []
     launch = kernels.CeilMaxPool2d.forward_impl
 
-    def recording(x):
-        layouts.append("channels_last" if kernels.pool_layout(x) else "nchw")
-        return launch(x)
+    def recording(x, with_taps):
+        layouts.append((list(x.shape[1:]), "channels_last" if kernels.pool_layout(x) else "nchw"))
+        return launch(x, with_taps)
 
     def one_step():
         step(state, batch, targets, 0, meta["batch_size"])
@@ -916,12 +1061,22 @@ def train_timing(state, cfg, card: str) -> dict:
 
     kernels.CeilMaxPool2d.forward_impl = staticmethod(recording)
     try:
-        prof = device_profile(one_step)
+        prof = device_profile(one_step, needles=("max_pool_forward",))
     finally:
         kernels.CeilMaxPool2d.forward_impl = staticmethod(launch)
-    emit({"phase": "train_profile", "gpu": card, **prof,
-          "pool_kernel_layouts": {k: layouts.count(k) for k in set(layouts)}})
-    return {**result, "pool_layouts": layouts}
+    torch_pools = prof["device_events_matching"]["max_pool_forward"]
+    stride1 = len(TOWERS) * sum(1 for _, b in BN_INCEPTION_BLOCKS if b.pool == "max" and b.proj)
+    emit({"phase": "train_profile", "gpu": card,
+          **prof,
+          "pool_kernel_calls": layouts,
+          "torch_max_pool_forward_launches": torch_pools,
+          "expected_torch_max_pool_forward_launches": stride1})
+    if torch_pools != stride1:
+        failures.append(f"train_profile: {torch_pools} torch max-pool forward kernels in a "
+                        f"pool_impl=pallas step, expected {stride1} (the stride-1 pools)")
+    if len(layouts) != 12:
+        failures.append(f"train_profile: {len(layouts)} pool kernel calls in a step, not 12")
+    return {**result, "pool_calls": [(tuple(shape), layout) for shape, layout in layouts]}
 
 
 def train_agreement(state_dict: dict, failures: list) -> None:
@@ -1237,13 +1392,25 @@ def main(argv=None) -> int:
                         for line in build.ptxas_report(n).splitlines()
                         if "Used" in line or "spill" in line]
                     for n in build.KERNELS}})
-    for name in ("mha", "fused_stem"):  # their bf16 routes run on wgmma
+    for name in ("pe_block", "mha", "fused_stem"):  # their bf16 routes run on wgmma
         if sass[name]["HGMMA"] < 1:
             failures.append(f"{name}: no HGMMA instruction in its library's SASS")
+    # the limits the wrappers check without a card, against the library's own
+    limits = {str(dt).replace("torch.", ""): (kernels.PE_BLOCK_LIMITS[dt],
+                                               kernels.pe_block_library_limits(dt))
+              for dt in kernels.PE_BLOCK_LIMITS}
+    emit({"phase": "pe_block_limits", "python_vs_library": limits})
+    for dt, (stated, built) in limits.items():
+        if tuple(stated) != tuple(built):
+            failures.append(f"pe_block limits at {dt}: kernels.py says {stated}, "
+                            f"the library {built}")
 
     check_wgmma(failures)
     main_case = check_kernels(failures)
     pool_records = check_max_pool(failures)
+    for layout in ("nchw", "channels_last"):
+        emit({"phase": "max_pool_step_pools", **pool_step_summary(
+            pool_records, POOL_ROWS[0], "bfloat16", uniform_pool_calls(layout))})
     stem_records = check_fused_stem(failures)
     emit({"phase": "fused_stem_serve_forward",
           **stem_forward_summary(stem_records, SERVE_STEMS, "bfloat16")})
@@ -1288,16 +1455,17 @@ def main(argv=None) -> int:
     # training path: the pool kernel, and pe_block / mha in validate
     state, train_cfg, train_launches = train_path(card, failures)
     emit({"phase": "launches", "path": "train", **train_launches})
-    timing = train_timing(state, train_cfg, card)
+    timing = train_timing(state, train_cfg, card, failures)
     trained = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     del state
     torch.cuda.empty_cache()
     train_agreement(trained, failures)
 
-    layouts = timing["pool_layouts"]
-    layout = max(set(layouts), key=layouts.count) if layouts else "nchw"
-    pool_case = pool_step_summary(pool_records, POOL_ROWS[0], "bfloat16", layout)
-    emit({"phase": "max_pool_train_step", **pool_case})
+    # the step's own pools, each in the layout the step handed the kernel
+    pool_case = pool_step_summary(pool_records, POOL_ROWS[0], "bfloat16", timing["pool_calls"])
+    emit({"phase": "max_pool_train_step", **pool_case})  # forward, and forward + backward
+    # the kernels line: event timing of back-to-back calls, as for every
+    # kernel there (the device times, from a CUDA graph, are in the line above)
     main_case["max_pool"] = pool_case
     launches = {"pe_block": serve_launches["pe_block"], "mha": serve_launches["mha"],
                 "max_pool": train_launches["max_pool"],

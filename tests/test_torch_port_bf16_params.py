@@ -249,3 +249,60 @@ def test_cast_cache_leaves_float32_and_training_alone():
     with torch.no_grad():
         (cached,) = cache.get("w", (w,), torch.bfloat16)
         assert not cached.requires_grad and cache.get("w", (w,), torch.bfloat16)[0] is cached
+
+
+def test_cast_cache_derives_once_per_parameter_version():
+    """A derived entry (the bf16 PE kernel's split weight) is computed from
+    the rounded tensors once, without autograd, and again only after a
+    source changes in place."""
+    w = torch.nn.Parameter(torch.randn(8, 6))
+    cache, calls = CastCache(), []
+
+    def derive(t):
+        calls.append(t.dtype)
+        return t[:, :4].contiguous()
+
+    first = cache.derive("w/split", (w,), torch.bfloat16, derive)
+    assert first.dtype == torch.bfloat16 and not first.requires_grad
+    torch.testing.assert_close(first, w.detach()[:, :4].bfloat16(), rtol=0, atol=0)
+    assert cache.derive("w/split", (w,), torch.bfloat16, derive) is first
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = cache.derive("w/split", (w,), torch.bfloat16, derive)
+    torch.testing.assert_close(again, w.detach()[:, :4].bfloat16(), rtol=0, atol=0)
+    assert calls == [torch.bfloat16, torch.bfloat16]
+
+
+def test_pe_split_operands_match_pallas_in_bf16():
+    """The bf16 kernel's operands (``kernels.pe_block_split`` of the module's
+    rounded table, weight and bias) against the Pallas wrapper's own split
+    (pallas_kernels.py:82-90): W's x columns bit-equal to its w_x, the PE
+    term within float32 rounding of its ``pe @ W_pe + b``; and the kernel's
+    arithmetic on them (``pe_block_split_plain``) against ``pe_block_pallas``
+    in interpret mode: >= 99% of outputs bit-equal, gap <= one bf16 ulp."""
+    pe = _perturbed(PositionalEncoding(max_len=S), seed=15)
+    x, jx = _bf16_input(B, S, E, seed=16)
+    conv, norm = pe[1], pe[2]
+    table = pe[0].pe[0, :, :S].T
+    sources = (table, conv.weight.view(E, -1), conv.bias)
+    split = CastCache().derive("split", sources, torch.bfloat16, kernels.pe_block_split)
+    w_x, pe_bias = split
+    assert w_x.is_contiguous() and w_x.shape == (E, E) and pe_bias.dtype == torch.float32
+
+    jnp_of = lambda t: jnp.asarray(t.detach().float().numpy())  # noqa: E731
+    j_table = jnp.asarray(positional_encoding_table(D, S)).astype(BF16)
+    j_kernel = jnp_of(conv.weight[:, :, 0].T).astype(BF16)  # (C_in + D, C_out)
+    j_bias = jnp_of(conv.bias).astype(BF16)
+    np.testing.assert_array_equal(w_x.float().numpy(),
+                                  np.asarray(j_kernel[:E].astype(jnp.float32)).T)
+    want_bias = (j_table.astype(jnp.float32) @ j_kernel[E:].astype(jnp.float32)
+                 + j_bias.astype(jnp.float32))
+    np.testing.assert_allclose(pe_bias.numpy(), np.asarray(want_bias), rtol=1e-6, atol=1e-6)
+
+    scale, shift = (t.detach().bfloat16() for t in (norm.weight, norm.bias))
+    got = kernels.pe_block_split_plain(x, split, scale, shift, num_groups=norm.num_groups)
+    want = pe_block_pallas(jx, j_table, j_kernel, j_bias, jnp_of(norm.weight).astype(BF16),
+                           jnp_of(norm.bias).astype(BF16), num_groups=norm.num_groups,
+                           interpret=True)
+    assert got.dtype == torch.bfloat16
+    assert_bf16_match(got.float().numpy(), want)

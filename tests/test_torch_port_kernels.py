@@ -154,21 +154,121 @@ def test_wrappers_name_the_parameter_dtype_they_take():
     kernels._check_param("mha", "in_proj_weight", params[0].bfloat16(), q.device, torch.bfloat16)
 
 
+def _bf16_pe(b=2, s=13, c=128):
+    """A valid bf16 call: (x, split, scale, shift)."""
+    args = [t.bfloat16() for t in _port_pe_args(_pe_case(b, s, c, seed=12))]
+    return args[0], kernels.pe_block_split(*args[1:4]), args[4], args[5]
+
+
+def _fp32_pe(s):
+    return list(_port_pe_args(_pe_case(2, s, 128, seed=12)))
+
+
+# (case, message, call): what the wrappers refuse; each call edits a valid
+# bf16 call (x, split, scale, shift) of pe_block_bf16, or makes one of the
+# float32 pe_block, and returns (wrapper, arguments, groups).
+_PE_REFUSED = {
+    "seq_over_64_bf16": ("sequence 65 outside [1, 64]",
+                         lambda x, sp, *n: ("bf16", (x.new_zeros(2, 65, 128), sp, *n), 32)),
+    "seq_over_16_fp32": ("sequence 17 outside [1, 16]",
+                         lambda *a: ("fp32", tuple(_fp32_pe(17)), 32)),
+    "c_in_not_64": ("C_in 96 must be a multiple of 64",
+                    lambda x, sp, *n: ("bf16", (x[..., :96].contiguous(),
+                                                (sp[0][:, :96].contiguous(), sp[1]), *n), 32)),
+    "c_out_not_64": ("multiple of 64",
+                     lambda x, sp, *n: ("bf16", (x, (sp[0][:96], sp[1][:, :96]),
+                                                 *[t[:96] for t in n]), 32)),
+    "group_of_2": ("channels per group", lambda *a: ("bf16", a, 64)),
+    "no_split": ("call pe_block_bf16",
+                 lambda *a: ("fp32", tuple([a[0]] + [t.bfloat16() for t in _fp32_pe(13)[1:]]),
+                             32)),
+    "float32_to_wgmma": ("takes bf16 activations",
+                         lambda x, *r: ("bf16", (x.float(), *r), 32)),
+    "split_float32": ("split weight",
+                      lambda x, sp, *n: ("bf16", (x, (sp[0].float(), sp[1]), *n), 32)),
+    "split_bias_bf16": ("split PE bias",
+                        lambda x, sp, *n: ("bf16", (x, (sp[0], sp[1].bfloat16()), *n), 32)),
+    "misaligned_x": ("16 bytes",
+                     lambda x, *r: ("bf16", (torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:]
+                                             .view(x.shape), *r), 32)),
+    "noncontiguous_x": ("contiguous",
+                        lambda x, *r: ("bf16", (torch.cat([x, x], -1)[..., :128], *r), 32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PE_REFUSED))
+def test_pe_block_limits_refused_without_a_card(case):
+    """The kernels' limits (S <= 64 at bf16 and 16 at fp32, C_in and C_out
+    multiples of 64 at bf16, 4-64 channels per group, each wrapper its own
+    dtype, the split operands' type, shape and 16-byte alignment) are
+    refused before any library loads."""
+    checks = {"bf16": (kernels.pe_block_bf16_shape_error, kernels.pe_block_bf16),
+              "fp32": (kernels.pe_block_shape_error, kernels.pe_block)}
+    valid = _bf16_pe()
+    assert kernels.pe_block_bf16_shape_error(*valid, num_groups=32) == ""
+    assert kernels.pe_block_shape_error(*_fp32_pe(13), num_groups=32) == ""
+    message, call = _PE_REFUSED[case]
+    route, args, groups = call(*valid)
+    shape_error, wrapper = checks[route]
+    assert message in shape_error(*args, num_groups=groups)
+    with pytest.raises(ValueError, match="no kernel for device"):  # never the plain twin
+        wrapper(args[0].to("meta"), *args[1:], num_groups=groups)
+
+
+def test_pe_block_split_is_the_same_function():
+    """x @ w_x^T + pe_bias == [x | PE] @ W^T + b in float32 (the split the
+    bf16 kernel takes), and the split twin agrees with the concat one."""
+    args = _port_pe_args(_pe_case(3, 13, 128, seed=13))
+    w_x, pe_bias = kernels.pe_block_split(*args[1:4])
+    torch.testing.assert_close(w_x, args[2][:, :128], rtol=0, atol=0)
+    x, table, weight, bias = args[:4]
+    concat = torch.cat([x, table[None].expand(3, -1, -1)], dim=-1) @ weight.T + bias
+    torch.testing.assert_close(x @ w_x.T + pe_bias, concat, **TOL)
+    torch.testing.assert_close(kernels.pe_block_split_plain(x, (w_x, pe_bias), *args[4:]),
+                               kernels.pe_block_plain(*args), **TOL)
+
+
+def test_pe_block_bf16_on_the_cpu_is_its_plain_version():
+    """On CPU tensors the bf16 wrapper is exactly the split twin (the wgmma
+    kernel's arithmetic) and counts no launch."""
+    kernels.reset_launch_counts()
+    x, split, scale, shift = _bf16_pe()
+    got = kernels.pe_block_bf16(x, split, scale, shift, num_groups=32)
+    want = kernels.pe_block_split_plain(x, split, scale, shift, num_groups=32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.dtype == torch.bfloat16 and kernels.pe_block.launches == 0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [25, 500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pe_block_limits_match_the_library(dtype):
+    """The limits the wrappers check without a card are the built
+    library's own (pe_block.cu's pe_block_limits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to build and load the library")
+    assert kernels.pe_block_library_limits(dtype) == kernels.PE_BLOCK_LIMITS[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [25, 250, 500])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 def test_cuda_kernels_match_plain_on_the_card(dtype, atol, rows):
-    """Flagship shapes (B*N 25 and the evaluation batch's 500, S 13, E 1024),
-    parameters in the activations' type (the bf16 mha runs on wgmma).
-    |err| <= atol + rtol*max|plain| with rtol = atol: fp32 summation order,
-    plus bf16 output rounding."""
+    """Flagship shapes (B*N 25, 250 and the evaluation batch's 500, S 13, E
+    1024), parameters in the activations' type (the bf16 pe_block and mha
+    run on wgmma; pe_block_bf16 takes the split operands). |err| <= atol +
+    rtol*max|plain| with rtol = atol: fp32 summation order, plus bf16
+    output rounding."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     pe = [t.cuda().to(dtype) for t in _port_pe_args(_pe_case(rows, 13, 1024, seed=7))]
     pe[1] = pe[1].T.contiguous().T  # the table as the model passes it: a strided view
+    if dtype == torch.bfloat16:
+        got = kernels.pe_block_bf16(pe[0], kernels.pe_block_split(*pe[1:4]), *pe[4:])
+    else:
+        got = kernels.pe_block(*pe)
     mha = [t.cuda().to(dtype) for t in _port_mha_args(_mha_case(rows, 13, 1024, seed=8))]
     torch.backends.cuda.matmul.allow_tf32 = False
-    pairs = [(kernels.pe_block(*pe), kernels.pe_block_plain(*pe))]
+    pairs = [(got, kernels.pe_block_plain(*pe))]
     pairs += list(zip(kernels.mha(*mha, num_heads=4), kernels.mha_plain(*mha, num_heads=4)))
     torch.cuda.synchronize()
     for got, want in pairs:

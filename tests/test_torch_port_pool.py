@@ -1,9 +1,11 @@
 """The towers' stride-2 ceil max pool: the port's plain version and its
 ``max_pool2d(impl="pallas")`` dispatch against the JAX package's
 reduce-window pool and its Pallas kernel (interpret mode), forward and
-gradient; the kernel wrapper's CPU rule, layout checks and autograd
-wiring; the ``tpu.pool_impl`` check of both packages; and, on a card only,
-the CUDA kernel against its plain version.
+gradient; the plain pool-with-taps and tap backward (the twins of the
+forward kernel's tap codes and of the gather backward kernel) against the
+JAX gradient and torch's NaN routing; the kernel wrapper's CPU rule,
+layout and size checks and autograd wiring; the ``tpu.pool_impl`` check of
+both packages; and, on a card only, the CUDA kernels against torch.
 
 Tolerance: none. Max is exact, and the gradient of a max pool routes each
 output's gradient to one input, so every comparison is exact equality
@@ -78,12 +80,27 @@ def test_ceil_out_size_matches_jax():
     assert [kernels.ceil_out_size(s) for s in (112, 210, 105, 56, 14)] == [56, 105, 52, 28, 7]
 
 
+def _plain_forward_impl(calls):
+    """The kernel's forward replaced by the plain twins, recording whether
+    taps were asked for."""
+    def forward_impl(x, with_taps):
+        calls.append(with_taps)
+        if with_taps:
+            return kernels.ceil_max_pool2d_taps_plain(x)
+        return kernels.ceil_max_pool2d_plain(x), None
+    return forward_impl
+
+
 def test_autograd_function_backward_is_the_plain_gradient(monkeypatch):
-    """The kernel's autograd wiring, with the kernel's forward replaced by the
-    plain pool (the kernel itself needs a card): the backward must give the
-    plain pool's gradient."""
+    """The kernels' autograd wiring, with both kernels replaced by their
+    plain twins (the kernels themselves need a card): the forward asks for
+    taps only while autograd records through the input, and the tap backward
+    gives the plain pool's gradient."""
+    calls = []
     monkeypatch.setattr(kernels.CeilMaxPool2d, "forward_impl",
-                        staticmethod(kernels.ceil_max_pool2d_plain))
+                        staticmethod(_plain_forward_impl(calls)))
+    monkeypatch.setattr(kernels.CeilMaxPool2d, "backward_impl",
+                        staticmethod(kernels.ceil_max_pool2d_backward_plain))
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 28, 28, 8)).astype(np.float32)
     g = rng.standard_normal((2, 14, 14, 8)).astype(np.float32)
@@ -91,6 +108,119 @@ def test_autograd_function_backward_is_the_plain_gradient(monkeypatch):
     want = _port_pool_and_grad(kernels.ceil_max_pool2d_plain, x, g)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+    with torch.no_grad():
+        kernels.CeilMaxPool2d.apply(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert calls == [True, False]
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_tap_wiring_keeps_the_layout_and_dtype(monkeypatch, dtype, channels_last):
+    """Through the autograd Function (plain twins in place of the kernels)
+    the output and dx keep x's memory format and type, with a gradient
+    handed in the other memory format, and dx equals torch's gradient."""
+    monkeypatch.setattr(kernels.CeilMaxPool2d, "forward_impl",
+                        staticmethod(_plain_forward_impl([])))
+    monkeypatch.setattr(kernels.CeilMaxPool2d, "backward_impl",
+                        staticmethod(kernels.ceil_max_pool2d_backward_plain))
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 8, 15, 12, generator=gen).to(dtype).contiguous(memory_format=fmt)
+    xg = x.clone().requires_grad_(True)
+    out = kernels.CeilMaxPool2d.apply(xg)
+    g = torch.randn(out.shape, generator=gen).to(dtype)  # NCHW whatever x's format
+    (dx,) = torch.autograd.grad(out, xg, g)
+    assert out.is_contiguous(memory_format=fmt) and dx.is_contiguous(memory_format=fmt)
+    assert dx.dtype == dtype
+    xf = x.float().requires_grad_(True)
+    (want,) = torch.autograd.grad(kernels.ceil_max_pool2d_plain(xf), xf, g.float())
+    torch.testing.assert_close(dx, want.to(dtype), rtol=0, atol=0)
+
+
+# (H, W, C) of the tap tests: a map where a 3 x 3 window fits once and odd
+# sizes (7, 13, 105: the audio tower's 105-wide map and its 13 and 7), and
+# even ones the Pallas kernel takes (even H, W <= 128)
+TAP_SHAPES = [(16, 26, 8), (105, 13, 4), (7, 7, 8), (64, 105, 4)]
+
+
+def _tap_case(h, w, c, ties, seed):
+    rng = np.random.default_rng(seed)
+    if ties:  # the tie maps of test_tie_gradient_routes_as_jax
+        x = rng.integers(0, 3, (2, h, w, c)).astype(np.float32)
+    else:
+        x = rng.standard_normal((2, h, w, c)).astype(np.float32)
+    g = rng.standard_normal((2, _ceil_out(h, 3, 2), _ceil_out(w, 3, 2), c)).astype(np.float32)
+    return x, g
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("h,w,c", TAP_SHAPES)
+def test_taps_and_tap_backward_match_jax(h, w, c, channels_last, dtype, ties):
+    """The plain pool-with-taps and the plain tap backward against the JAX
+    package's pool and gradient, exactly: jax.vjp of ``_xla_pool`` and, where
+    the Pallas kernel takes the shape, of ``ceil_max_pool2d_pallas`` in
+    interpret mode. The inputs are exact in bf16; at bf16 the reference is
+    the JAX gradient of those values in float32, rounded to bf16 once: the
+    port sums a gradient's (at most four) terms in float32 and rounds once,
+    as torch's CUDA backward does, where JAX's bf16 VJP rounds every partial
+    sum (so inputs that take three or four windows' gradients may differ)."""
+    x, g = _tap_case(h, w, c, ties, seed=h * w + c)
+    x = x.astype(np.float32)
+    if dtype == torch.bfloat16:  # make both sides' inputs bf16-exact
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+        g = torch.from_numpy(g).bfloat16().float().numpy()
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=fmt)
+    out, taps = kernels.ceil_max_pool2d_taps_plain(xt)
+    assert out.is_contiguous(memory_format=fmt) and taps.is_contiguous(memory_format=fmt)
+    assert taps.dtype == torch.uint8 and int(taps.max()) <= 8
+    gt = torch.from_numpy(g).permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=fmt)
+    dx = kernels.ceil_max_pool2d_backward_plain(gt, taps, tuple(xt.shape), channels_last)
+    assert dx.is_contiguous(memory_format=fmt) and dx.dtype == dtype
+    got = (out.float().permute(0, 2, 3, 1).numpy(), dx.float().permute(0, 2, 3, 1).numpy())
+    refs = [_xla_pool] + ([lambda v: ceil_max_pool2d_pallas(v, True)]
+                          if h % 2 == 0 and w <= 128 else [])
+    for fn in refs:
+        want = _jax_pool_and_grad(fn, x, g)
+        want_dx = torch.from_numpy(want[1].copy()).to(dtype).float().numpy()  # rounded once
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want_dx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+def test_nan_taps_follow_torch(channels_last, dtype):
+    """NaN: torch's pool lets a NaN tap win (the last one of a window) and
+    sends the window's gradient there; the plain twins do the same. (The JAX
+    package's forward also returns NaN, but XLA's select-and-scatter routes
+    the gradient of such a window elsewhere: there the port follows torch,
+    whose gradient the model trained with before the kernels.)"""
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 3, (2, 4, 15, 13)).astype(np.float32)
+    x.reshape(-1)[::37] = np.nan
+    x.reshape(-1)[1::37] = np.nan
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    xt = torch.from_numpy(x).to(dtype).contiguous(memory_format=fmt)
+    out, taps = kernels.ceil_max_pool2d_taps_plain(xt)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)).to(dtype)
+    dx = kernels.ceil_max_pool2d_backward_plain(g, taps, tuple(xt.shape), channels_last)
+    xf = xt.float().requires_grad_(True)
+    want = torch.nn.functional.max_pool2d(xf, 3, 2, 0, ceil_mode=True)
+    (want_dx,) = torch.autograd.grad(want, xf, g.float())
+    assert int(want.isnan().sum()) > 0
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(dx, want_dx.to(dtype), rtol=0, atol=0)
+
+
+def test_pool_size_limits_are_refused_without_a_card():
+    """The kernels' 32-bit index math and grid axes: 2^31 elements, or N or
+    H above 65535, are refused before any launch."""
+    kernels._check_pool_size(torch.empty(250, 64, 128, 210, device="meta"))
+    for shape in ((2**16, 64, 128, 256), (1, 1, 70000, 3), (70000, 1, 3, 3)):
+        with pytest.raises(ValueError, match="2\\^31"):
+            kernels._check_pool_size(torch.empty(shape, device="meta"))
 
 
 def test_cpu_tensors_take_the_plain_pool():
@@ -151,26 +281,35 @@ def test_int8_quantize_runs_in_jax_and_is_refused_by_the_port():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties_nan"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels_last", [False, True])
-def test_cuda_kernel_equals_plain_on_the_card(dtype, channels_last):
-    """Flagship pool shapes at a few rows: forward exactly equal, output in
-    the input's memory format, fp32 gradient exactly equal."""
+def test_cuda_kernel_equals_plain_on_the_card(dtype, channels_last, ties):
+    """Flagship pool shapes at a few rows: forward exactly equal (NaN where
+    torch has NaN), output in the input's memory format; the gradient
+    through the taps and the gather kernel bit-equal to torch's, in x's
+    memory format."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     gen = torch.Generator().manual_seed(0)
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     for c, h, w in ((64, 112, 112), (192, 56, 56), (64, 128, 210), (608, 16, 26), (3, 9, 7)):
-        x = torch.randn(4, c, h, w, generator=gen).cuda().to(dtype).contiguous(memory_format=fmt)
+        if ties:
+            x = torch.randint(0, 3, (4, c, h, w), generator=gen).float()
+            x.view(-1)[::97] = float("nan")
+            x.view(-1)[1::97] = float("nan")
+        else:
+            x = torch.randn(4, c, h, w, generator=gen)
+        x = x.cuda().to(dtype).contiguous(memory_format=fmt)
         before = kernels.ceil_max_pool2d.launches
         got = kernels.ceil_max_pool2d(x)
         assert kernels.ceil_max_pool2d.launches == before + 1
         want = kernels.ceil_max_pool2d_plain(x)
         assert got.is_contiguous(memory_format=fmt)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-        if dtype == torch.float32:
-            xg = x.detach().requires_grad_(True)
-            g = torch.randn(want.shape, generator=gen).cuda()
-            (dx,) = torch.autograd.grad(kernels.ceil_max_pool2d(xg), xg, g)
-            (dw,) = torch.autograd.grad(kernels.ceil_max_pool2d_plain(xg), xg, g)
-            torch.testing.assert_close(dx, dw, rtol=0, atol=0)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        xg = x.detach().requires_grad_(True)
+        g = torch.randn(want.shape, generator=gen).cuda().to(dtype)
+        (dx,) = torch.autograd.grad(kernels.ceil_max_pool2d(xg), xg, g)
+        (dw,) = torch.autograd.grad(kernels.ceil_max_pool2d_plain(xg), xg, g)
+        assert dx.is_contiguous(memory_format=fmt)
+        torch.testing.assert_close(dx, dw, rtol=0, atol=0)
