@@ -17,9 +17,12 @@ then None rather than zero: the optimizer reads it as zero). Statistics
 keep updating under ``partialbn``, which only freezes affine parameters in
 the optimizer.
 
-``pool_impl`` (``tpu.pool_impl``) goes to every max pool; with "pallas" the
-four 3x3 / stride-2 ceil pools (stem pool1 and pool2, the passthrough of
-inception 3c and 4e) run the hand-written kernel on a CUDA tensor.
+``pool_impl`` (``tpu.pool_impl``) and ``pool_fast_vjp``
+(``tpu.pool_fast_vjp``) go to every max pool (ops/pooling.max_pool2d);
+with "pallas" the four 3x3 / stride-2 ceil pools (stem pool1 and pool2,
+the passthrough of inception 3c and 4e) run the hand-written kernel on a
+CUDA tensor; ``pool_fast_vjp`` gives every pool the kernel does not take
+the JAX package's all-ties gradient in training.
 
 ``fused_stem`` (``tpu.fused_stem``): at eval, a 7x7 stem on an input whose
 H and W are multiples of 4 runs normalize -> conv -> BN -> ReLU -> pool1 as
@@ -92,11 +95,12 @@ class BNInception(nn.Module):
 
     def __init__(self, in_channels: int, freq_pool_only: bool = False,
                  audio_stem: bool = False, pool_impl: str = "reduce_window",
-                 fused_stem: bool = False):
+                 fused_stem: bool = False, pool_fast_vjp: bool = False):
         super().__init__()
         self.freq_pool_only = freq_pool_only
         self.audio_stem = audio_stem
         self.pool_impl = pool_impl
+        self.pool_fast_vjp = pool_fast_vjp
         self.fused_stem = fused_stem
         self._folded = FoldCache()
         if audio_stem:
@@ -165,7 +169,8 @@ class BNInception(nn.Module):
                           dtype)
 
     def _max_pool(self, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
-        return max_pool2d(x, 3, stride, padding, ceil_mode=True, impl=self.pool_impl)
+        return max_pool2d(x, 3, stride, padding, ceil_mode=True, impl=self.pool_impl,
+                          fast_vjp=self.pool_fast_vjp)
 
     def _block(self, name: str, s: InceptionSpec, x: torch.Tensor,
                row_mask: Optional[torch.Tensor]) -> torch.Tensor:

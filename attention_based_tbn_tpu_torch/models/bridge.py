@@ -12,6 +12,9 @@ the JAX package's ``models/convert_back.export_tbn_state_dict`` emits:
   PE table, the prototype curves, ``num_batches_tracked``) are regenerated.
 * :func:`state_dict_to_jax` — the inverse, so that weights drawn by the
   port can be fed to the JAX package (the tests do).
+* :func:`conv3x3_weight_from_jax` / :func:`conv3x3_weight_to_jax` — one
+  3x3 conv kernel, HWIO (3, 3, C_in, C_out) <-> torch's (C_out, C_in, 3,
+  3), for the fused-block probe's convolution (``ops/kernels.conv3x3``).
 
 The port keeps its own copy of this numpy logic; it imports nothing of the
 JAX package.
@@ -175,6 +178,26 @@ def state_dict_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
                  value.T if leaf == "weight" else value)
         # pe.0.pe, prototype_wts and num_batches_tracked are regenerated
     return {"params": params, "batch_stats": stats}
+
+
+def conv3x3_weight_from_jax(kernel_hwio) -> np.ndarray:
+    """An HWIO (3, 3, C_in, C_out) conv kernel -> (C_out, C_in, 3, 3), in
+    its own type."""
+    kernel = np.asarray(kernel_hwio)
+    if kernel.ndim != 4 or kernel.shape[:2] != (3, 3):
+        raise ValueError(f"kernel must be HWIO (3, 3, C_in, C_out), got {kernel.shape}")
+    return np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1)))
+
+
+def conv3x3_weight_to_jax(weight) -> np.ndarray:
+    """The inverse of :func:`conv3x3_weight_from_jax`: (C_out, C_in, 3, 3)
+    (numpy, or a tensor, taken as float32) -> HWIO (3, 3, C_in, C_out)."""
+    if isinstance(weight, torch.Tensor):
+        weight = weight.detach().cpu().float().numpy()
+    weight = np.asarray(weight)
+    if weight.ndim != 4 or weight.shape[2:] != (3, 3):
+        raise ValueError(f"weight must be (C_out, C_in, 3, 3), got {weight.shape}")
+    return np.ascontiguousarray(np.transpose(weight, (2, 3, 1, 0)))
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:

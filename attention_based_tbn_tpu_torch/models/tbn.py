@@ -92,6 +92,9 @@ class TBNSpec:
     # Max-pool lowering (tpu.pool_impl, ops/pooling.POOL_IMPLS): "pallas"
     # runs the towers' stride-2 ceil pools on the hand-written kernel.
     pool_impl: str = "reduce_window"
+    # tpu.pool_fast_vjp: on an exact tie every maximal input of a max pool
+    # window takes the window's gradient (ops/pooling.MaxPoolAllTies).
+    pool_fast_vjp: bool = False
     # Average features before the heads instead of logits after them (same
     # math: consensus commutes with the linear heads). With use_pallas, the
     # eval forward runs mean and heads as one kernel (consensus_heads).
@@ -134,6 +137,7 @@ class TBNSpec:
             compute_dtype=cfg.get_path("tpu.compute_dtype", "float32") or "float32",
             use_pallas=bool(cfg.get_path("tpu.use_pallas", False)),
             pool_impl=str(cfg.get_path("tpu.pool_impl", "reduce_window") or "reduce_window"),
+            pool_fast_vjp=bool(cfg.get_path("tpu.pool_fast_vjp", False)),
             fast_consensus=bool(cfg.get_path("tpu.fast_consensus", False)),
             fused_stem=bool(cfg.get_path("tpu.fused_stem", False)),
             quantize=str(cfg.get_path("tpu.quantize", "") or ""),
@@ -192,6 +196,7 @@ class TBNModel(nn.Module):
                 freq_pool_only=(m == "Audio" and spec.audio_attends),
                 audio_stem=(m in spec.audio_stem),
                 pool_impl=spec.pool_impl,
+                pool_fast_vjp=spec.pool_fast_vjp,
                 fused_stem=spec.fused_stem,
             ))
         if spec.learned_attention:

@@ -18,6 +18,10 @@
 * ``consensus_heads`` — the segment mean of (B, N, F) features and every
   classifier head on it, float32 logits (csrc/consensus_heads.cu; replaces
   ``ops/pallas_kernels.py:consensus_heads_pallas``).
+* ``conv3x3`` — the fused-block probe's 3x3 / stride-1 / pad-1 conv + fp32
+  bias + ReLU on NHWC input (csrc/conv3x3.cu; replaces
+  ``benchmarks/fused_block_probe.py:conv3x3_pallas``); at bf16 an implicit
+  GEMM on the tensor cores, from :func:`pack_conv3x3_weight`'s operand.
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain version
 (``*_plain``); a CUDA tensor launches the kernel, or raises when the kernel
@@ -30,8 +34,9 @@ Activations are fp32 or bf16, and so are the parameters of ``pe_block``,
 ((out, in) matrices). At bf16 the model hands them rounded once, as the
 JAX package's call sites round theirs (``models/layers.CastCache``); the
 kernels and the plain versions widen them to fp32 and compute in fp32.
-``fused_stem`` takes its weight in the compute type and its bias and
-input affine in fp32. The plain versions return what the kernels return.
+``fused_stem`` and ``conv3x3`` take their weight in the compute type and
+their bias in fp32 (``conv3x3`` widens its own; ``fused_stem`` also takes
+its input affine in fp32). The plain versions return what the kernels return.
 """
 
 from __future__ import annotations
@@ -80,6 +85,11 @@ _SIGNATURES = {
         "consensus_heads_max_features": (_I, []),
         "consensus_heads_max_heads": (_I, []),
         "consensus_heads_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "conv3x3": {
+        "conv3x3_forward": (_I, [_I, _I] + [_P] * 4 + [_I] * 5 + [_P]),
+        "conv3x3_limits": (_I, [_I, _P]),
+        "conv3x3_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 _STEM_INPUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -725,8 +735,136 @@ def consensus_heads(features, weights, biases):
 
 consensus_heads.launches = 0
 
+# --------------------------------------------------------------- conv 3x3
+
+# Each route's (multiple of C_in, multiple of C_out): at bf16 16-byte
+# chunks of 8 channels, the unit the kernel copies and stores
+# (conv3x3.cu). The library reports the same through conv3x3_limits
+# (:func:`conv3x3_library_limits`).
+CONV3X3_LIMITS = {torch.float32: (1, 1), torch.bfloat16: (8, 8)}
+
+
+def conv3x3_plain(x, weight, bias):
+    """(B, H, W, C_in) NHWC -> (B, H, W, C_out) contiguous NHWC in x's
+    type: a 3x3 / stride 1 / zero pad 1 conv with the torch-layout
+    ``weight`` (C_out, C_in, 3, 3) in float32 on the widened operands, +
+    the float32 bias, ReLU, one rounding. Mirrors the JAX probe's
+    ``conv3x3_pallas`` (its ``conv3x3_xla`` adds the bias after rounding).
+    On a card, float32 convolutions must run with TF32 off."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.float(), None, 1, 1)
+    y = F.relu(y + bias.float()[:, None, None])
+    return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def conv3x3_k_padded(c_in: int) -> int:
+    """The bf16 route's GEMM depth: 9 C_in rounded up to 64, one swizzled
+    row of the wgmma operands per stage."""
+    return -(-9 * c_in // 64) * 64
+
+
+def pack_conv3x3_weight(weight):
+    """(C_out, C_in, 3, 3) -> (C_out rounded up to 64, K) K-major: row o
+    holds k = (ky * 3 + kx) * C_in + c, then zeros up to K =
+    ``conv3x3_k_padded(C_in)``; the padding rows are zero. The bf16
+    kernel's B operand: [im2col rows in the same K order] @ packed.T is the
+    conv."""
+    o, c = weight.shape[:2]
+    flat = weight.permute(0, 2, 3, 1).reshape(o, 9 * c)
+    return F.pad(flat, (0, conv3x3_k_padded(c) - 9 * c, 0, -(-o // 64) * 64 - o)).contiguous()
+
+
+def conv3x3_shape_error(x, weight, bias) -> str:
+    """Why :func:`conv3x3`'s kernel cannot take these arguments ("" when
+    it can), checked without a card: NHWC x of fp32 or bf16, contiguous and
+    16-byte aligned, the torch-layout weight in x's type, a (C_out,) float
+    bias, the route's ``CONV3X3_LIMITS``, fewer than 2^31 elements in x
+    and in the output."""
+    if x.dim() != 4:
+        return f"x must be (B, H, W, C_in) NHWC, got {tuple(x.shape)}"
+    if x.dtype not in CONV3X3_LIMITS:
+        return f"dtype {x.dtype} not in {list(CONV3X3_LIMITS)}"
+    b, h, w, c_in = x.shape
+    if min(b, h, w, c_in) < 1:
+        return f"x {tuple(x.shape)} is empty"
+    if weight.dim() != 4 or tuple(weight.shape[1:]) != (c_in, 3, 3) or weight.shape[0] < 1:
+        return f"weight {tuple(weight.shape)} != (C_out, {c_in}, 3, 3)"
+    if weight.dtype != x.dtype:
+        return f"weight must be {x.dtype} (x's type), got {weight.dtype}"
+    c_out = weight.shape[0]
+    if tuple(bias.shape) != (c_out,) or not bias.is_floating_point():
+        return f"bias {tuple(bias.shape)} {bias.dtype} != ({c_out},) float"
+    c_in_multiple, c_out_multiple = CONV3X3_LIMITS[x.dtype]
+    if c_in % c_in_multiple or c_out % c_out_multiple:
+        return (f"C_in {c_in} and C_out {c_out} must be multiples of {c_in_multiple} and "
+                f"{c_out_multiple} at {x.dtype}")
+    if not x.is_contiguous():
+        return "x must be contiguous NHWC memory"
+    if x.numel() >= 2**31 or b * h * w * c_out >= 2**31:
+        return f"x {tuple(x.shape)} or its output has 2^31 elements or more"
+    if x.data_ptr() % 16:
+        return "x must start on 16 bytes"
+    return ""
+
+
+_CONV3X3_OPERANDS: list = []  # [(weight, bias, their versions, (operand, fp32 bias))]
+
+
+def conv3x3_operands(weight, bias):
+    """The kernel's operands of the torch-layout ``weight`` and ``bias``:
+    at bf16 :func:`pack_conv3x3_weight`, at fp32 the weight contiguous; the
+    bias widened to fp32. Made once per version of the pair: the last pair
+    is kept, and the references kept to it stop its memory from being
+    reused by other tensors, so a repeated call launches no copy."""
+    versions = (weight._version, bias._version)
+    if _CONV3X3_OPERANDS:
+        w, b, seen, operands = _CONV3X3_OPERANDS[0]
+        if w is weight and b is bias and seen == versions:
+            return operands
+    with torch.no_grad():
+        packed = pack_conv3x3_weight(weight) if weight.dtype == _BF16 else weight.contiguous()
+        operands = (packed, bias.float().contiguous())
+    _CONV3X3_OPERANDS[:] = [(weight, bias, versions, operands)]
+    return operands
+
+
+def conv3x3(x, weight, bias):
+    """:func:`conv3x3_plain` on the CPU; the CUDA kernel on the card. Takes
+    NHWC ``x`` as it lies and returns a contiguous (B, H, W, C_out) NHWC
+    tensor in x's type."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, weight, bias)
+    _require_cuda(x)
+    problem = conv3x3_shape_error(x, weight, bias)
+    if problem:
+        raise ValueError(f"conv3x3: {problem}")
+    if weight.device != x.device or bias.device != x.device:
+        raise ValueError(f"conv3x3: weight and bias must be on {x.device}")
+    w_op, bias32 = conv3x3_operands(weight, bias)
+    b, h, w, c_in = x.shape
+    c_out = weight.shape[0]
+    out = torch.empty((b, h, w, c_out), device=x.device, dtype=x.dtype)
+    lib = _library("conv3x3")
+    err = lib.conv3x3_forward(_DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x), _ptr(w_op),
+                              _ptr(bias32), _ptr(out), b, h, w, c_in, c_out, _stream(x))
+    _raise_on_error("conv3x3", lib.conv3x3_error_string, err)
+    conv3x3.launches += 1
+    return out
+
+
+conv3x3.launches = 0
+
+
+def conv3x3_library_limits(dtype):
+    """``CONV3X3_LIMITS[dtype]`` as the built library states it."""
+    limits = (ctypes.c_int * 2)()
+    lib = _library("conv3x3")
+    _raise_on_error("conv3x3", lib.conv3x3_error_string,
+                    lib.conv3x3_limits(_DTYPE_CODES[dtype], limits))
+    return tuple(limits)
+
+
 WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d,
-            "fused_stem": fused_stem, "consensus_heads": consensus_heads}
+            "fused_stem": fused_stem, "consensus_heads": consensus_heads, "conv3x3": conv3x3}
 
 
 def reset_launch_counts() -> None:

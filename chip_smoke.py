@@ -12,10 +12,14 @@ instructions in each library's SASS, holds Hopper's wgmma shared-memory
 descriptor against ``torch.matmul`` (one m64n64k16 product without swizzle,
 a K = 64 one with the 128-byte swizzle the kernels use), and holds each
 kernel against its plain PyTorch version at the main paths' shapes, with
-parameters in the activations' type as the models pass them. Then drives
-three paths, each with the kernels' launch counts set to 0 just before it
-and read just after:
+parameters in the activations' type as the models pass them (conv3x3 also
+at a BN-Inception shape and a ragged one). Then drives four paths, each
+with the kernels' launch counts set to 0 just before it and read just
+after:
 
+* the fused-block probe: ``tools/fused_block_probe.main`` at its defaults
+  (200 x 28 x 28 x 96 -> 128, bf16), conv3x3 against cuDNN and the plain
+  version, event-timed and by CUDA graph;
 * serving: the flagship model (tri-modal BN-Inception, 224x224 crops, 25
   segments, 2.1 s audio, MHA attention, bf16, kernels on) with seeded
   weights through ``tools/serve.ServingModel``: requests of batch 1, 3 (in
@@ -77,10 +81,12 @@ from attention_based_tbn_tpu_torch.parallel.optim import lr_at_epoch
 from attention_based_tbn_tpu_torch.parallel.train_step import (
     create_train_state, make_eval_step, make_train_step,
 )
+from attention_based_tbn_tpu_torch.tools import fused_block_probe
 from attention_based_tbn_tpu_torch.tools.serve import ServingModel, bench, make_server
 from attention_based_tbn_tpu_torch.tools.train import train_one_epoch, validate
 from attention_based_tbn_tpu_torch.utils.metrics import Metric
 from attention_based_tbn_tpu_torch.utils.misc import get_modality
+from attention_based_tbn_tpu_torch.utils.timing import event_ms, graph_ms
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and operations/s by
 # the activations' type (bf16 tensor cores; fp32 outside the tensor cores).
@@ -108,6 +114,7 @@ REPLACES = {
     "max_pool": "attention_based_tbn_tpu/ops/pallas_pool.py:88",
     "fused_stem": "attention_based_tbn_tpu/ops/fused_stem.py:264",
     "consensus_heads": "attention_based_tbn_tpu/ops/pallas_kernels.py:299",
+    "conv3x3": "benchmarks/fused_block_probe.py:76",
 }
 SOURCES = {
     "pe_block": "attention_based_tbn_tpu_torch/ops/csrc/pe_block.cu",
@@ -115,6 +122,7 @@ SOURCES = {
     "max_pool": "attention_based_tbn_tpu_torch/ops/csrc/max_pool.cu",
     "fused_stem": "attention_based_tbn_tpu_torch/ops/csrc/fused_stem.cu",
     "consensus_heads": "attention_based_tbn_tpu_torch/ops/csrc/consensus_heads.cu",
+    "conv3x3": "attention_based_tbn_tpu_torch/ops/csrc/conv3x3.cu",
 }
 # (H, W, C, input type) of each tower's stem input on the main paths: uint8
 # 224x224 RGB and 10-channel Flow, the float32 256x420 spectrogram of 2.1 s
@@ -124,6 +132,15 @@ STEM_INPUTS = {
     "Flow": (224, 224, 10, torch.uint8, (0.502,) * 10),
     "Audio": (256, 420, 1, torch.float32, None),
 }
+# (case, rows, H, W, C_in, C_out) of the conv3x3 checks: the fused-block
+# probe's default; BN-Inception's inception_3a_double_3x3_1 (28 x 28, 64 ->
+# 96) at a b=10 served request's 250 rows; a ragged case (odd H and W, one
+# image, C_in and C_out multiples of 8 only, C_out inside one 64-wide tile).
+CONV3X3_CASES = (
+    ("probe", fused_block_probe.BATCH, *fused_block_probe.DEFAULT_SHAPE),
+    ("inception_3a_double_3x3_1", 250, 28, 28, 64, 96),
+    ("ragged", 1, 13, 17, 24, 40),
+)
 CLASS_HEADS = (125, 352)  # verb, noun
 FUSION = 512
 # The evaluation path: 2 clips x 25 segments per batch, Flow 10-cropped;
@@ -169,42 +186,6 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 10) -> float:
-    """Device time of one call of ``fn`` with the host out of the way:
-    ``iters`` calls captured in one CUDA graph, replayed between CUDA
-    events (the wrappers' host work, which event timing of back-to-back
-    calls measures when it is the longer, is not in the graph)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
-    del graph
-    return ms
 
 
 def bound(bytes_moved: float, ops: float, dtype) -> tuple:
@@ -364,7 +345,7 @@ def time_pool(x, gen) -> dict:
            "plain_": lambda: kernels.ceil_max_pool2d_plain(x),
            "fwd_bwd_": pair(kernels.ceil_max_pool2d),
            "torch_fwd_bwd_": pair(kernels.ceil_max_pool2d_plain)}
-    times = {f"{k}ms": time_ms(fn, 20) for k, fn in fns.items()}
+    times = {f"{k}ms": event_ms(fn, 20) for k, fn in fns.items()}
     if x.shape[0] == POOL_ROWS[0]:  # the train step's pools: also the device's own time
         times.update({f"{k}device_ms": graph_ms(fn) for k, fn in fns.items()})
     return times
@@ -463,9 +444,9 @@ def check_fused_stem(failures: list) -> list:
                 "input": str(args[0].dtype).replace("torch.", ""),
                 "dtype": str(dtype).replace("torch.", ""), "shape": list(got.shape),
                 "max_abs_err": err, "tolerance": tol, "ok": ok,
-                "ms": time_ms(lambda: kernels.fused_stem(*args, dtype), 10),
-                "plain_ms": time_ms(lambda: stem_composition(*args, dtype), 10),
-                "plain_function_ms": time_ms(lambda: kernels.fused_stem_plain(*args, dtype), 3),
+                "ms": event_ms(lambda: kernels.fused_stem(*args, dtype), 10),
+                "plain_ms": event_ms(lambda: stem_composition(*args, dtype), 10),
+                "plain_function_ms": event_ms(lambda: kernels.fused_stem_plain(*args, dtype), 3),
                 "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             }
             emit(record)
@@ -530,9 +511,9 @@ def check_consensus_heads(failures: list) -> list:
                 "heads": list(CLASS_HEADS),
                 "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max(errs),
                 "tolerance": tols, "ok": ok,
-                "ms": time_ms(lambda: kernels.consensus_heads(feats, weights, biases)),
-                "plain_ms": time_ms(lambda: kernels.consensus_heads_plain(feats, weights, biases)),
-                "composition_ms": time_ms(composition), "library_ms": None,
+                "ms": event_ms(lambda: kernels.consensus_heads(feats, weights, biases)),
+                "plain_ms": event_ms(lambda: kernels.consensus_heads_plain(feats, weights, biases)),
+                "composition_ms": event_ms(composition), "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             emit(record)
@@ -540,6 +521,103 @@ def check_consensus_heads(failures: list) -> list:
             if not ok:
                 failures.append(f"consensus_heads {b}x{n} {dtype}: {errs} > {tols}")
     return records
+
+
+def conv3x3_cost(rows: int, h: int, w: int, c_in: int, c_out: int, dtype) -> tuple:
+    """x, the weight, the bias and the output once, in the activations'
+    type; 2 * 9 C_in operations per output for the products, and its bias
+    and ReLU, at the peak of ``dtype`` (bf16 tensor cores, or fp32 units)."""
+    elt = torch.finfo(dtype).bits // 8
+    positions = rows * h * w
+    moved = elt * (positions * (c_in + c_out) + 9 * c_in * c_out + c_out)
+    ops = positions * c_out * (2 * 9 * c_in + 2)
+    return bound(moved, ops, dtype)
+
+
+def check_conv3x3(failures: list) -> list:
+    """The conv3x3 kernel against its plain version at CONV3X3_CASES, fp32
+    (TF32 off) and bf16, weight and bias in the activations' type as the
+    probe passes them: ms (event-timed), graph_ms (CUDA graph), the plain
+    version's ms, and library_ms, the cuDNN composition on the same NHWC
+    memory (``F.conv2d`` with the bias in channels-last, then ``F.relu``:
+    two calls). A bf16 input whose C_in the kernel cannot take must raise.
+    Returns one record per case."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(7)
+    records = []
+    for case, rows, h, w, c_in, c_out in CONV3X3_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, h, w, c_in, generator=gen).cuda().to(dtype)
+            weight = (torch.randn(c_out, c_in, 3, 3, generator=gen) / (9 * c_in) ** 0.5).cuda()
+            weight, bias = weight.to(dtype), torch.randn(c_out, generator=gen).cuda().to(dtype)
+            x_nchw = x.permute(0, 3, 1, 2)  # channels-last view of the NHWC memory
+            weight_cl = weight.contiguous(memory_format=torch.channels_last)
+
+            def kernel():
+                return kernels.conv3x3(x, weight, bias)
+
+            def plain():
+                return kernels.conv3x3_plain(x, weight, bias)
+
+            def library():
+                return torch.nn.functional.relu(
+                    torch.nn.functional.conv2d(x_nchw, weight_cl, bias, 1, 1), inplace=True)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            atol, rtol = KERNEL_TOL[dtype]
+            err = (got.float() - want.float()).abs().max().item()
+            tol = atol + rtol * want.float().abs().max().item()
+            ok = (err <= tol and tuple(got.shape) == tuple(want.shape)
+                  and got.is_contiguous())
+            bound_ms, bound_by = conv3x3_cost(rows, h, w, c_in, c_out, dtype)
+            record = {
+                "phase": "conv3x3_check", "case": case, "rows": rows,
+                "shape": [h, w, c_in, c_out], "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tolerance": tol, "ok": ok,
+                "library_vs_plain_max_abs": (library().permute(0, 2, 3, 1).float()
+                                             - want.float()).abs().max().item(),
+                "ms": event_ms(kernel, 20), "graph_ms": graph_ms(kernel),
+                "plain_ms": event_ms(plain, 5), "library_ms": event_ms(library, 20),
+                "library_graph_ms": graph_ms(library), "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            emit(record)
+            records.append(record)
+            if not ok:
+                failures.append(f"conv3x3 {case} {dtype}: err {err} > {tol}")
+            del x, weight, bias, x_nchw, weight_cl, got, want
+    x = torch.zeros(1, 5, 5, 12, device="cuda", dtype=torch.bfloat16)
+    try:
+        kernels.conv3x3(x, torch.zeros(8, 12, 3, 3, device="cuda", dtype=torch.bfloat16),
+                        torch.zeros(8, device="cuda"))
+        failures.append("conv3x3 took a bf16 input of 12 channels (C_in % 8 != 0)")
+    except ValueError:
+        pass
+    torch.cuda.empty_cache()
+    return records
+
+
+def probe_path(card: str, failures: list) -> dict:
+    """conv3x3's main path: the port's fused-block probe at its defaults,
+    in this process, with the launch counts set to 0 just before and read
+    just after; its output must agree with the plain version's."""
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    result = fused_block_probe.main([])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+    emit({"phase": "probe_path", **result, "gpu": card, "seconds": seconds,
+          "launches": launches})
+    if launches["conv3x3"] < 1:
+        failures.append("kernel conv3x3 was not launched on the probe path")
+    rtol = KERNEL_TOL[torch.bfloat16][1]
+    if not result["rel_err_vs_plain"] <= rtol:
+        failures.append(f"probe path: rel err vs the plain version "
+                        f"{result['rel_err_vs_plain']} > {rtol}")
+    return launches
 
 
 def check_kernels(failures: list) -> dict:
@@ -583,8 +661,8 @@ def check_kernels(failures: list) -> dict:
                     "max_abs_err": max(d for d, _, _ in errs),
                     "max_rel_err": max(d / max(s, 1e-30) for d, s, _ in errs),
                     "tolerance": [tol for _, _, tol in errs], "ok": ok,
-                    "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
-                    "library_ms": time_ms(library_fn) if library_fn else None,
+                    "ms": event_ms(kernel_fn), "plain_ms": event_ms(plain_fn),
+                    "library_ms": event_ms(library_fn) if library_fn else None,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                 }
                 if name == "pe_block" and split is not None:
@@ -1392,7 +1470,7 @@ def main(argv=None) -> int:
                         for line in build.ptxas_report(n).splitlines()
                         if "Used" in line or "spill" in line]
                     for n in build.KERNELS}})
-    for name in ("pe_block", "mha", "fused_stem"):  # their bf16 routes run on wgmma
+    for name in ("pe_block", "mha", "fused_stem", "conv3x3"):  # their bf16 routes run on wgmma
         if sass[name]["HGMMA"] < 1:
             failures.append(f"{name}: no HGMMA instruction in its library's SASS")
     # the limits the wrappers check without a card, against the library's own
@@ -1403,6 +1481,14 @@ def main(argv=None) -> int:
     for dt, (stated, built) in limits.items():
         if tuple(stated) != tuple(built):
             failures.append(f"pe_block limits at {dt}: kernels.py says {stated}, "
+                            f"the library {built}")
+    limits = {str(dt).replace("torch.", ""): (kernels.CONV3X3_LIMITS[dt],
+                                               kernels.conv3x3_library_limits(dt))
+              for dt in kernels.CONV3X3_LIMITS}
+    emit({"phase": "conv3x3_limits", "python_vs_library": limits})
+    for dt, (stated, built) in limits.items():
+        if tuple(stated) != tuple(built):
+            failures.append(f"conv3x3 limits at {dt}: kernels.py says {stated}, "
                             f"the library {built}")
 
     check_wgmma(failures)
@@ -1420,10 +1506,17 @@ def main(argv=None) -> int:
     main_case["consensus_heads"] = next(
         r for r in consensus_records
         if tuple(r["shape"][:2]) == CONSENSUS_SHAPES[-1] and r["dtype"] == "bfloat16")
+    conv3x3_records = check_conv3x3(failures)
+    main_case["conv3x3"] = next(  # the probe's default shape and type
+        r for r in conv3x3_records if r["case"] == "probe" and r["dtype"] == "bfloat16")
     if args.quick:
         for failure in failures:
             print(f"FAILED: {failure}", file=sys.stderr)
         return 1 if failures else 0
+
+    # the fused-block probe: conv3x3
+    probe_launches = probe_path(card, failures)
+    emit({"phase": "launches", "path": "probe", **probe_launches})
 
     # serving path: pe_block and mha
     cfg = load_config()  # flagship defaults: tri-modal MHA, 224^2, 25 seg, bf16, kernels on
@@ -1470,7 +1563,8 @@ def main(argv=None) -> int:
     launches = {"pe_block": serve_launches["pe_block"], "mha": serve_launches["mha"],
                 "max_pool": train_launches["max_pool"],
                 "fused_stem": test_launches["fused_stem"],
-                "consensus_heads": test_launches["consensus_heads"]}
+                "consensus_heads": test_launches["consensus_heads"],
+                "conv3x3": probe_launches["conv3x3"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": main_case[name]["max_abs_err"],

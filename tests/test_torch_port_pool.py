@@ -268,6 +268,105 @@ def test_bogus_pool_impl_raises_in_both_packages():
         dataclasses.replace(spec, pool_impl=impl).validate()
 
 
+# (kernel, stride, padding, (N, H, W, C)) of the towers' two max pools:
+# the stride-2 ceil pool (odd W: a clipped last window) and the stride-1
+# pad-1 pool of the inception blocks' pool branch
+TIE_POOLS = {"3x3_s2_ceil": (3, 2, 0, (2, 16, 27, 4)), "3x3_s1_p1": (3, 1, 1, (2, 9, 13, 4))}
+
+
+def _tied_pool_grads(pool, channels_last, fast_vjp):
+    """A map of values 0, 1, 2 (exact ties in most windows) and a gradient:
+    JAX's input gradient through ``max_pool2d(..., fast_vjp=True)`` (NHWC
+    numpy), the port's dx through ``max_pool2d(..., fast_vjp=fast_vjp)``
+    on NCHW or channels-last memory, and torch's own pool gradient."""
+    from attention_based_tbn_tpu.ops.pooling import max_pool2d as jax_max_pool2d
+
+    k, s, p, shape = TIE_POOLS[pool]
+    rng = np.random.default_rng(sum(shape) + s)
+    x = rng.integers(0, 3, shape).astype(np.float32)
+    y, vjp = jax.vjp(lambda v: jax_max_pool2d(v, k, s, p, True, fast_vjp=True), jnp.asarray(x))
+    g = rng.standard_normal(y.shape).astype(np.float32)
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)  # channels-last memory
+    xt = (xt if channels_last else xt.contiguous()).requires_grad_(True)
+    gt = torch.from_numpy(g).permute(0, 3, 1, 2)
+    out = max_pool2d(xt, k, s, p, ceil_mode=True, fast_vjp=fast_vjp)
+    np.testing.assert_array_equal(out.detach().permute(0, 2, 3, 1).numpy(), np.asarray(y))
+    (dx,) = torch.autograd.grad(out, xt, gt)
+    (plain,) = torch.autograd.grad(
+        torch.nn.functional.max_pool2d(xt, k, s, p, ceil_mode=True), xt, gt)
+    return want, dx, plain
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("pool", sorted(TIE_POOLS))
+def test_fast_vjp_gradient_matches_jax_on_ties(pool, channels_last):
+    """With tpu.pool_fast_vjp every maximal input of a tied window takes
+    the window's gradient, exactly JAX's _max_pool_fast_vjp in float32, in
+    the input's memory format."""
+    want, dx, _ = _tied_pool_grads(pool, channels_last, fast_vjp=True)
+    np.testing.assert_array_equal(_nhwc(dx), want)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    assert dx.is_contiguous(memory_format=fmt)
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("pool", sorted(TIE_POOLS))
+def test_without_fast_vjp_the_gradient_has_one_winner(pool, channels_last):
+    """The key off: torch's single-winner gradient, unchanged, which on
+    this map differs from the all-ties one."""
+    want, dx, plain = _tied_pool_grads(pool, channels_last, fast_vjp=False)
+    torch.testing.assert_close(dx, plain, rtol=0, atol=0)
+    assert not np.array_equal(_nhwc(dx), want)
+
+
+def test_fast_vjp_keeps_the_dispatch_order(monkeypatch):
+    """JAX's order: the kernel (pallas on the accelerator), then slices,
+    then fast_vjp, then the default. Without autograd, and for slices or
+    integer maps, the all-ties Function is not used."""
+    from attention_based_tbn_tpu_torch.ops import pooling
+
+    calls = []
+    monkeypatch.setattr(pooling.MaxPoolAllTies, "apply",
+                        lambda *a: calls.append(a) or torch.nn.functional.max_pool2d(*a[:4]))
+    x = torch.randn(1, 2, 9, 9, requires_grad=True)
+    max_pool2d(x, 3, 2, 0, True, impl="slices", fast_vjp=True)
+    max_pool2d(x.detach(), 3, 2, 0, True, fast_vjp=True)
+    max_pool2d(torch.ones(1, 2, 9, 9, dtype=torch.int32), 3, 2, 0, True, fast_vjp=True)
+    with torch.no_grad():
+        max_pool2d(x, 3, 2, 0, True, fast_vjp=True)
+    assert not calls
+    for impl in ("reduce_window", "pallas"):  # pallas on a CPU tensor: no kernel
+        max_pool2d(x, 3, 2, 0, True, impl=impl, fast_vjp=True)
+    assert len(calls) == 2
+
+
+def test_pool_fast_vjp_is_read_and_reaches_every_max_pool(monkeypatch):
+    """TBNSpec reads tpu.pool_fast_vjp as the JAX TBNSpec does, and every
+    tower hands it to each of its max pools (the default stays off)."""
+    from attention_based_tbn_tpu_torch.models import bn_inception
+
+    cfg, jcfg = configs(["tpu.pool_fast_vjp=true"])
+    spec = TBNSpec.from_config(cfg, ("RGB", "Audio"))
+    assert spec.pool_fast_vjp and JaxTBNSpec.from_config(jcfg, ("RGB", "Audio")).pool_fast_vjp
+    assert not TBNSpec.from_config(configs()[0], ("RGB", "Audio")).pool_fast_vjp
+    model = TBNModel(spec)
+    towers = [model.Base_RGB, model.Base_Audio]
+    assert all(t.pool_fast_vjp for t in towers)
+    seen = []
+    real = bn_inception.max_pool2d
+    monkeypatch.setattr(bn_inception, "max_pool2d",
+                        lambda *a, **kw: seen.append(kw["fast_vjp"]) or real(*a, **kw))
+    with torch.no_grad():
+        towers[0](torch.randn(1, 3, 64, 64), torch.float32)
+    # pool1, pool2, the passthroughs of 3c and 4e, and 5b's max branch
+    assert len(seen) == 5 and all(seen)
+
+
 def test_int8_quantize_runs_in_jax_and_is_refused_by_the_port():
     """tpu.quantize=int8 selects int8 towers in the JAX package; the port has
     none yet and refuses the key instead of returning bf16 logits under it."""
