@@ -287,11 +287,13 @@ class TBNModel(nn.Module):
             fused = self.fusion(fused, dtype, generator)
         if spec.fast_consensus and use_kernels and not self.training:
             heads = list(self.classifier.items())
-            # the heads' parameters rounded to the compute dtype, as TorchLinear does
+            # the heads' parameters rounded to the compute dtype, as TorchLinear
+            # does; the same cached tensors every call, so the kernel's
+            # operands (ops/kernels.consensus_heads_operands) are made once
             params = self._cast.get("heads", tuple(
                 t for _, head in heads for t in (head.weight, head.bias)), dtype)
-            logits = consensus_heads(fused.reshape(b, n_consensus, -1), list(params[0::2]),
-                                     list(params[1::2]))
+            logits = consensus_heads(fused.reshape(b, n_consensus, -1), params[0::2],
+                                     params[1::2])
             out = {name: v for (name, _), v in zip(heads, logits)}
         elif spec.fast_consensus:
             pooled = fused.reshape(b, n_consensus, -1).float().mean(dim=1).to(dtype)

@@ -1,8 +1,10 @@
 // Hopper warpgroup matrix multiply (wgmma) plumbing shared by the bf16
-// routes of mha.cu and fused_stem.cu: the shared-memory matrix descriptor,
-// the K-major 128-byte-swizzled tile layout both kernels stage their
-// operands in, the fence / commit / wait instructions, and the one product
-// they issue, m64n64k16 with bf16 operands and fp32 accumulators. Needs the
+// routes of pe_block.cu, mha.cu, fused_stem.cu and conv3x3.cu: the
+// shared-memory matrix descriptor, the K-major 128-byte-swizzled tile layout
+// the kernels stage their operands in, the fence / commit / wait
+// instructions, and the product m64n64k16 with bf16 operands and fp32
+// accumulators in two forms: both operands in shared memory (SS), or A in
+// registers (RS), filled by ldmatrix_x4 from any 16-byte rows. Needs the
 // sm_90a target (ops/build.py): wgmma does not exist without the "a".
 //
 // Operand layout. Both operands are K-major (k contiguous): A is (64 rows of
@@ -19,11 +21,14 @@
 // Trouble spots. The descriptor is the usual failure: a wrong offset or
 // swizzle mode gives wrong numbers, not a fault; chip_smoke.py --quick holds
 // one m64n64k16 product without the swizzle and a K = 64 product with it
-// against torch.matmul (mha_wgmma_probe) before the kernels are checked.
+// against torch.matmul (mha_wgmma_probe), and a K = 64 product of the RS
+// form (conv3x3_wgmma_rs_probe), before the kernels are checked.
 // Shared memory written by threads (st.shared, cp.async) must be made
 // visible to the tensor cores' async proxy with proxy_fence() before the
 // barrier that precedes the wgmma. The accumulator registers must not be
-// read or written between issuing a wgmma and the wait that retires it.
+// read or written between issuing a wgmma and the wait that retires it, nor
+// the A registers of the RS form; ptxas then serializes the products and
+// says so in its -v report ("wgmma.mma_async instructions are serialized").
 #pragma once
 
 #include <cstdint>
@@ -115,6 +120,53 @@ __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The RS form's A operand: a warp's 16 rows x 16 bf16 of K as four 32-bit
+// registers a thread (the mma.m16n8k16 A fragment): a[0] row (lane / 4)
+// k 0-7, a[1] row (lane / 4) + 8 k 0-7, a[2] and a[3] the same rows k 8-15;
+// warp w of the warpgroup holds rows 16 w .. 16 w + 15 of the 64.
+// ldmatrix_x4 fills it: lane l passes the shared address of the 16 bytes
+// (8 bf16 of K) of row l % 16, K chunk l / 16. Each row address is free, so
+// A can be gathered from a halo or any table of rows; 16-byte aligned.
+// No "memory" clobber (as CUTLASS's LDSM): the loads that compute the
+// addresses may be hoisted above it; the barriers that order the shared
+// memory it reads are volatile asm with the clobber.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t row_address) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(row_address));
+}
+
+// Keeps the compiler from moving writes of an A fragment across the
+// asynchronous product that reads it (as fence_accumulators).
+__device__ __forceinline__ void fence_fragment(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d (64 x 64, fp32) += A (64 x 16, registers: ldmatrix_x4's fragment) @
+// B (64 x 16)^T, B K-major bf16 in shared memory. Accumulators as
+// mma_m64n64k16's. A's registers must not be written until the wait that
+// retires this product.
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 __device__ __forceinline__ int accumulator_row(int i, int thread) {

@@ -20,8 +20,9 @@
   ``ops/pallas_kernels.py:consensus_heads_pallas``).
 * ``conv3x3`` — the fused-block probe's 3x3 / stride-1 / pad-1 conv + fp32
   bias + ReLU on NHWC input (csrc/conv3x3.cu; replaces
-  ``benchmarks/fused_block_probe.py:conv3x3_pallas``); at bf16 an implicit
-  GEMM on the tensor cores, from :func:`pack_conv3x3_weight`'s operand.
+  ``benchmarks/fused_block_probe.py:conv3x3_pallas``); at bf16 on the tensor
+  cores from :func:`pack_conv3x3_weight`'s operand, by one of two routes
+  (:func:`conv3x3_route`).
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain version
 (``*_plain``); a CUDA tensor launches the kernel, or raises when the kernel
@@ -84,11 +85,14 @@ _SIGNATURES = {
         "consensus_heads_forward": (_I, [_I, _I] + [_P] * 5 + [_I] * 4 + [_P]),
         "consensus_heads_max_features": (_I, []),
         "consensus_heads_max_heads": (_I, []),
+        "consensus_heads_cluster": (_I, []),
         "consensus_heads_error_string": (ctypes.c_char_p, [_I]),
     },
     "conv3x3": {
         "conv3x3_forward": (_I, [_I, _I] + [_P] * 4 + [_I] * 5 + [_P]),
         "conv3x3_limits": (_I, [_I, _P]),
+        "conv3x3_route": (_I, [_I, _I, _I, _P]),
+        "conv3x3_wgmma_rs_probe": (_I, [_I, _P, _P, _P, _P]),
         "conv3x3_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -694,43 +698,116 @@ def consensus_heads_plain(features, weights, biases):
             for w, b in zip(weights, biases)]
 
 
+# The kernel's limits (csrc/consensus_heads.cu); the smoke holds them
+# against the library's consensus_heads_max_features / _max_heads.
+CONSENSUS_MAX_FEATURES = 4096
+CONSENSUS_MAX_HEADS = 4
+
+
+class ConsensusOperands:
+    """The heads' parameters as the kernel takes them: ctypes arrays of the
+    weight and bias pointers and of the class counts, with what the wrapper
+    checks a call against (F, type, device) and each head's slice of the
+    one output buffer."""
+
+    def __init__(self, weights, biases):
+        count = len(weights)
+        pointers = ctypes.c_void_p * count
+        self.weight_ptrs = pointers(*[w.data_ptr() for w in weights])
+        self.bias_ptrs = pointers(*[v.data_ptr() for v in biases])
+        classes = [w.shape[0] for w in weights]
+        self.class_counts = (ctypes.c_int * count)(*classes)
+        self.count = count
+        self.total = sum(classes)
+        # (C_h, classes before head h): head h's (B, C_h) logits start at
+        # B times the second in the output buffer
+        self.heads = [(c, sum(classes[:h])) for h, c in enumerate(classes)]
+        self.features = weights[0].shape[1]
+        self.dtype = weights[0].dtype
+        self.device = weights[0].device
+        # what a CUDA tensor's get_device() returns on that card; -1 (a CPU
+        # tensor's) for heads off the card, which no CUDA features match
+        self.device_index = self.device.index if self.device.type == "cuda" else -1
+
+
+def consensus_heads_params_error(weights, biases) -> str:
+    """Why the kernel cannot take these heads ("" when it can), checked
+    without a card: 1 to CONSENSUS_MAX_HEADS heads of contiguous (C_h, F)
+    weights and (C_h,) biases, one F <= CONSENSUS_MAX_FEATURES, one type
+    (fp32 or bf16) and one device."""
+    if not 1 <= len(weights) <= CONSENSUS_MAX_HEADS or len(weights) != len(biases):
+        return (f"{len(weights)} weights, {len(biases)} biases; 1 to {CONSENSUS_MAX_HEADS} "
+                "heads")
+    w0 = weights[0]
+    if w0.dtype not in _DTYPE_CODES:
+        return f"dtype {w0.dtype} not in {list(_DTYPE_CODES)}"
+    if w0.dim() != 2 or not 1 <= w0.shape[1] <= CONSENSUS_MAX_FEATURES:
+        return f"weight {tuple(w0.shape)}: (C, F) with F <= {CONSENSUS_MAX_FEATURES}"
+    for w, v in zip(weights, biases):
+        for t in (w, v):
+            if t.dtype != w0.dtype or t.device != w0.device or not t.is_contiguous():
+                return f"every weight and bias must be contiguous {w0.dtype} on {w0.device}"
+        if w.dim() != 2 or w.shape[1] != w0.shape[1] or w.shape[0] < 1 or (
+                tuple(v.shape) != (w.shape[0],)):
+            return (f"weight {tuple(w.shape)} / bias {tuple(v.shape)} do not fit "
+                    f"F={w0.shape[1]}")
+    return ""
+
+
+_CONSENSUS_OPERANDS: list = []  # [(weights + biases, head count, their versions, operands)]
+
+
+def consensus_heads_operands(weights, biases) -> ConsensusOperands:
+    """The kernel's :class:`ConsensusOperands` of the heads, checked and
+    made once per version of the tensors: the last set is kept (its
+    references keep the pointers valid), so a repeated call builds no
+    ctypes array and re-checks no parameter."""
+    weights, biases = tuple(weights), tuple(biases)
+    tensors = weights + biases
+    seen = [t._version for t in tensors]
+    if _CONSENSUS_OPERANDS:
+        kept, kept_count, kept_seen, operands = _CONSENSUS_OPERANDS[0]
+        if (kept_count == len(weights) and len(kept) == len(tensors) and kept_seen == seen
+                and all(a is b for a, b in zip(kept, tensors))):
+            return operands
+    problem = consensus_heads_params_error(weights, biases)
+    if problem:
+        raise ValueError(f"consensus_heads: {problem}")
+    operands = ConsensusOperands(weights, biases)
+    _CONSENSUS_OPERANDS[:] = [(tensors, len(weights), seen, operands)]
+    return operands
+
+
 def consensus_heads(features, weights, biases):
     """:func:`consensus_heads_plain` on the CPU; one launch of the CUDA
-    kernel for every head on the card."""
+    kernel for every head on the card, its operands from
+    :func:`consensus_heads_operands`. Each head's logits are a contiguous
+    (B, C_h) view of one float32 buffer."""
     if features.device.type == "cpu":
         return consensus_heads_plain(features, weights, biases)
     _require_cuda(features)
-    lib = _library("consensus_heads")
-    if features.dim() != 3:
-        raise ValueError(f"consensus_heads: features must be (B, N, F), got "
-                         f"{tuple(features.shape)}")
-    _check_activation("consensus_heads", features)
+    ops = consensus_heads_operands(weights, biases)
+    # the cheapest checks that hold (a CUDA tensor's get_device is its index)
+    if features.get_device() != ops.device_index:
+        raise ValueError(f"consensus_heads: features on {features.device}, heads on "
+                         f"{ops.device}: the kernel needs both on one card")
+    if features.dim() != 3 or features.dtype != ops.dtype or not features.is_contiguous():
+        raise ValueError(f"consensus_heads: features must be contiguous (B, N, F) {ops.dtype}, "
+                         f"got {tuple(features.shape)} {features.dtype}")
     b, n, f = features.shape
-    if not 1 <= f <= lib.consensus_heads_max_features() or n < 1 or not 1 <= b <= _MAX_GRID_Y:
+    if f != ops.features or n < 1 or not 1 <= b <= _MAX_GRID_Y:
         raise ValueError(f"consensus_heads: (B, N, F) {tuple(features.shape)} outside the "
-                         f"kernel's range (F <= {lib.consensus_heads_max_features()})")
-    if not 1 <= len(weights) <= lib.consensus_heads_max_heads() or len(weights) != len(biases):
-        raise ValueError(f"consensus_heads: {len(weights)} weights, {len(biases)} biases; "
-                         f"1 to {lib.consensus_heads_max_heads()} heads")
-    for w, bias in zip(weights, biases):
-        _check_param("consensus_heads", "weight", w, features.device, features.dtype)
-        _check_param("consensus_heads", "bias", bias, features.device, features.dtype)
-        if w.dim() != 2 or w.shape[1] != f or tuple(bias.shape) != (w.shape[0],):
-            raise ValueError(f"consensus_heads: weight {tuple(w.shape)} / bias "
-                             f"{tuple(bias.shape)} do not fit F={f}")
-    outs = [torch.empty((b, w.shape[0]), device=features.device, dtype=torch.float32)
-            for w in weights]
-    count = len(weights)
-    pointers = ctypes.c_void_p * count
+                         f"kernel's range (F = {ops.features}, N >= 1, B <= {_MAX_GRID_Y})")
+    lib = _library("consensus_heads")
+    out = features.new_empty(b * ops.total, dtype=torch.float32)
     err = lib.consensus_heads_forward(
-        _DTYPE_CODES[features.dtype], features.device.index or 0, _ptr(features),
-        pointers(*[_ptr(w) for w in weights]), pointers(*[_ptr(v) for v in biases]),
-        pointers(*[_ptr(o) for o in outs]), (ctypes.c_int * count)(*[w.shape[0] for w in weights]),
-        count, b, n, f, _stream(features),
+        _DTYPE_CODES[features.dtype], ops.device_index, _ptr(features),
+        ops.weight_ptrs, ops.bias_ptrs, _ptr(out), ops.class_counts, ops.count, b, n, f,
+        _stream(features),
     )
     _raise_on_error("consensus_heads", lib.consensus_heads_error_string, err)
     consensus_heads.launches += 1
-    return outs
+    return [out.as_strided((b, c), (c, 1), b * start) for c, start in ops.heads]
 
 
 consensus_heads.launches = 0
@@ -742,6 +819,32 @@ consensus_heads.launches = 0
 # (conv3x3.cu). The library reports the same through conv3x3_limits
 # (:func:`conv3x3_library_limits`).
 CONV3X3_LIMITS = {torch.float32: (1, 1), torch.bfloat16: (8, 8)}
+
+
+# The routes of csrc/conv3x3.cu, by the library's route code: fp32 FMAs;
+# at bf16 the resident route (the N tile's weight kept in shared memory
+# beside the input halos) up to C_in CONV3X3_RESIDENT_MAX_C_IN, the
+# streaming implicit GEMM (K through a cp.async ring) beyond. The smoke
+# holds the constant against the library's conv3x3_resident_max_c_in.
+CONV3X3_ROUTES = ("fma", "streaming", "resident")
+CONV3X3_RESIDENT_MAX_C_IN = 96
+
+
+def conv3x3_route(x_shape, c_out: int, dtype=torch.bfloat16) -> str:
+    """The route the kernel takes for NHWC ``x_shape`` (B, H, W, C_in) and
+    ``c_out`` (a name of CONV3X3_ROUTES), checked without a card: at bf16
+    the resident route up to C_in CONV3X3_RESIDENT_MAX_C_IN, else the
+    streaming one. Raises ValueError for a shape neither takes (bf16 channel
+    counts must be multiples of 8)."""
+    c_in = x_shape[-1]
+    if dtype not in CONV3X3_LIMITS:
+        raise ValueError(f"conv3x3: dtype {dtype} not in {list(CONV3X3_LIMITS)}")
+    c_in_multiple, c_out_multiple = CONV3X3_LIMITS[dtype]
+    if c_in < 1 or c_out < 1 or c_in % c_in_multiple or c_out % c_out_multiple:
+        raise ValueError(f"conv3x3: no route takes C_in {c_in}, C_out {c_out} at {dtype}")
+    if dtype == torch.float32:
+        return "fma"
+    return "resident" if c_in <= CONV3X3_RESIDENT_MAX_C_IN else "streaming"
 
 
 def conv3x3_plain(x, weight, bias):
@@ -822,7 +925,8 @@ def conv3x3_operands(weight, bias):
             return operands
     with torch.no_grad():
         packed = pack_conv3x3_weight(weight) if weight.dtype == _BF16 else weight.contiguous()
-        operands = (packed, bias.float().contiguous())
+        # a fresh fp32 copy: the kernel reads the bias in aligned pairs
+        operands = (packed, bias.to(torch.float32, copy=True))
     _CONV3X3_OPERANDS[:] = [(weight, bias, versions, operands)]
     return operands
 
@@ -863,6 +967,31 @@ def conv3x3_library_limits(dtype):
     return tuple(limits)
 
 
+def conv3x3_library_route(x_shape, c_out: int, dtype=torch.bfloat16) -> str:
+    """:func:`conv3x3_route` as the built library states it."""
+    route = ctypes.c_int()
+    lib = _library("conv3x3")
+    _raise_on_error("conv3x3", lib.conv3x3_error_string,
+                    lib.conv3x3_route(_DTYPE_CODES[dtype], x_shape[-1], c_out,
+                                      ctypes.byref(route)))
+    return CONV3X3_ROUTES[route.value]
+
+
+def wgmma_rs_probe(a, b):
+    """(64, 64) x (64, 64) bf16 on the card -> (64, 64) fp32 ``a @ b.T``
+    through four k16 products of wgmma's register-A form, A by ldmatrix
+    (conv3x3.cu): the check of wgmma.cuh's RS helpers; counts no launch."""
+    _require_cuda(a)
+    for t in (a, b):
+        if tuple(t.shape) != (64, 64) or t.dtype != _BF16 or not t.is_contiguous():
+            raise ValueError("wgmma_rs_probe: operands must be contiguous (64, 64) bf16")
+    lib = _library("conv3x3")
+    c = torch.empty((64, 64), device=a.device, dtype=torch.float32)
+    err = lib.conv3x3_wgmma_rs_probe(a.device.index or 0, _ptr(a), _ptr(b), _ptr(c), _stream(a))
+    _raise_on_error("wgmma_rs_probe", lib.conv3x3_error_string, err)
+    return c
+
+
 WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d,
             "fused_stem": fused_stem, "consensus_heads": consensus_heads, "conv3x3": conv3x3}
 
@@ -891,7 +1020,7 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _require_cuda(t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"no kernel for device {t.device}; use a CPU or CUDA tensor")
 
 
@@ -919,7 +1048,9 @@ def _ptr(t: torch.Tensor) -> int:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on t's card (the raw getter: no
+    Stream object is made, which cost microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _raise_on_error(fn: str, error_string, err: int) -> None:

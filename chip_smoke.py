@@ -8,13 +8,17 @@
 
 Builds the hand-written kernels from ``attention_based_tbn_tpu_torch/ops/csrc``
 (one ``nvcc`` per source, all at once), counts the wgmma (HGMMA)
-instructions in each library's SASS, holds Hopper's wgmma shared-memory
-descriptor against ``torch.matmul`` (one m64n64k16 product without swizzle,
-a K = 64 one with the 128-byte swizzle the kernels use), and holds each
-kernel against its plain PyTorch version at the main paths' shapes, with
-parameters in the activations' type as the models pass them (conv3x3 also
-at a BN-Inception shape and a ragged one). Then drives four paths, each
-with the kernels' launch counts set to 0 just before it and read just
+instructions in each library's SASS, holds Hopper's wgmma against
+``torch.matmul`` (one m64n64k16 product without swizzle, a K = 64 one with
+the 128-byte swizzle the kernels use, and a K = 64 one of the register-A
+form with A by ldmatrix), and holds each kernel against its plain PyTorch
+version at the main paths' shapes, with parameters in the activations'
+type as the models pass them: conv3x3 also at BN-Inception shapes (one on
+its streaming route) and a ragged one, each record naming the route the
+library took (``route``), and a NaN input; consensus_heads with its device
+time by CUDA graph (``graph_ms``) at every shape, plus one-row, one-clip,
+F = 1024 and one-, three- and four-head cases. Then drives four paths,
+each with the kernels' launch counts set to 0 just before it and read just
 after:
 
 * the fused-block probe: ``tools/fused_block_probe.main`` at its defaults
@@ -135,11 +139,14 @@ STEM_INPUTS = {
 # (case, rows, H, W, C_in, C_out) of the conv3x3 checks: the fused-block
 # probe's default; BN-Inception's inception_3a_double_3x3_1 (28 x 28, 64 ->
 # 96) at a b=10 served request's 250 rows; a ragged case (odd H and W, one
-# image, C_in and C_out multiples of 8 only, C_out inside one 64-wide tile).
+# image, C_in and C_out multiples of 8 only, C_out inside one 64-wide tile);
+# BN-Inception's inception_5a_3x3 (7 x 7, an image smaller than one tile,
+# 192 -> 320), whose weight does not fit a block: the streaming route.
 CONV3X3_CASES = (
     ("probe", fused_block_probe.BATCH, *fused_block_probe.DEFAULT_SHAPE),
     ("inception_3a_double_3x3_1", 250, 28, 28, 64, 96),
     ("ragged", 1, 13, 17, 24, 40),
+    ("inception_5a_3x3", 250, 7, 7, 192, 320),
 )
 CLASS_HEADS = (125, 352)  # verb, noun
 FUSION = 512
@@ -150,6 +157,21 @@ TEST_VIDEOS, TEST_ACTIONS = 20, 10
 TEST_STEMS = (("Flow", 500), ("Audio", 50))  # (modality, rows) of one forward's stems
 SERVE_STEMS = tuple((m, ROWS[-1]) for m in STEM_INPUTS)  # a b=10 served request's
 CONSENSUS_SHAPES = ((10, ROWS[0]), (10, ROWS[-1]), (TEST_BATCH, 10 * ROWS[0]))  # (B, N)
+# More consensus_heads cases, (B, N, F, heads, offset): one segment row
+# (fewer rows than the cluster's 8 blocks); three heads; one clip; F = 1024
+# (a single-modality model without Fusion); one head; four heads; and the
+# kernel's element-wise loads: F = 100 (not a multiple of 8 or 4), and
+# features starting `offset` elements into their buffer (not on 16 bytes).
+CONSENSUS_EXTRA = (
+    (TEST_BATCH, 1, FUSION, CLASS_HEADS, 0),
+    (TEST_BATCH, 10 * ROWS[0], FUSION, (125, 352, 97), 0),
+    (1, 10 * ROWS[0], FUSION, CLASS_HEADS, 0),
+    (TEST_BATCH, ROWS[0], 1024, CLASS_HEADS, 0),
+    (TEST_BATCH, ROWS[0], FUSION, (97,), 0),
+    (3, 10, FUSION, (125, 352, 97, 8), 0),
+    (TEST_BATCH, ROWS[0], 100, CLASS_HEADS, 0),
+    (TEST_BATCH, ROWS[0], FUSION, CLASS_HEADS, 1),
+)
 # (C, H, W) per row of the four stride-2 ceil max pools of a tower (stem
 # pool1 and pool2, the passthrough of inception 3c and 4e), 224x224 crops
 # and the 256x420 spectrogram of 2.1 s audio.
@@ -467,59 +489,80 @@ def stem_forward_summary(records: list, stems: tuple, dtype: str) -> dict:
             "stems": [[r["modality"], r["rows"]] for r in cases], "dtype": dtype}
 
 
-def consensus_cost(b: int, n: int, dtype) -> tuple:
+def consensus_cost(b: int, n: int, dtype, heads=CLASS_HEADS, f=FUSION) -> tuple:
     """Features, weights, biases (in the features' type) and fp32 logits
     once; N adds per feature and a multiply-add per feature and class, on
     the fp32 units (the kernel computes in fp32)."""
     elt = torch.finfo(dtype).bits // 8
-    classes = sum(CLASS_HEADS)
-    moved = elt * (b * n * FUSION + classes * FUSION + classes) + 4 * b * classes
-    ops = b * n * FUSION + 2 * b * FUSION * classes
+    classes = sum(heads)
+    moved = elt * (b * n * f + classes * f + classes) + 4 * b * classes
+    ops = b * n * f + 2 * b * f * classes
     return bound(moved, ops, torch.float32)
 
 
 def check_consensus_heads(failures: list) -> list:
     """The consensus + heads kernel against its plain version at (B, N,
-    512) for (B, N) in CONSENSUS_SHAPES with the verb / noun heads, fp32
-    and bf16 features; composition_ms is the port's fast consensus without
-    the kernel (mean, round to the compute type, Linear heads in it)."""
+    512) for (B, N) in CONSENSUS_SHAPES with the verb / noun heads, and at
+    CONSENSUS_EXTRA, fp32 and bf16 features: ms event-timed (back-to-back
+    calls: the wrapper's host work), graph_ms by CUDA graph (the kernel's
+    device time); composition_ms is the port's fast consensus without the
+    kernel (mean, round to the compute type, Linear heads in it). Heads on
+    the CPU with features on the card must raise."""
     gen = torch.Generator().manual_seed(4)
     records = []
-    for b, n in CONSENSUS_SHAPES:
+    cases = [(b, n, FUSION, CLASS_HEADS, 0) for b, n in CONSENSUS_SHAPES] + list(
+        CONSENSUS_EXTRA)
+    for b, n, f, heads, offset in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            feats = torch.randn(b, n, FUSION, generator=gen).relu().cuda().to(dtype)
+            feats = torch.randn(b, n, f, generator=gen).relu().to(dtype)
+            # `offset` elements into a larger buffer on the card: contiguous,
+            # but not on 16 bytes
+            feats = torch.empty(offset + feats.numel(), dtype=dtype, device="cuda")[
+                offset:].view(b, n, f).copy_(feats)
             # parameters in the features' type, as the model passes them
-            weights = [(torch.randn(c, FUSION, generator=gen) * 0.03).cuda().to(dtype)
-                       for c in CLASS_HEADS]
-            biases = [(torch.randn(c, generator=gen) * 0.1).cuda().to(dtype) for c in CLASS_HEADS]
+            weights = [(torch.randn(c, f, generator=gen) * 0.03).cuda().to(dtype)
+                       for c in heads]
+            biases = [(torch.randn(c, generator=gen) * 0.1).cuda().to(dtype) for c in heads]
+
+            def kernel():
+                return kernels.consensus_heads(feats, weights, biases)
+
+            def plain():
+                return kernels.consensus_heads_plain(feats, weights, biases)
 
             def composition():
                 pooled = feats.float().mean(dim=1).to(dtype)
                 return [(torch.nn.functional.linear(pooled, w) + v).float()
                         for w, v in zip(weights, biases)]
 
-            got = kernels.consensus_heads(feats, weights, biases)
-            want = kernels.consensus_heads_plain(feats, weights, biases)
+            got, want = kernel(), plain()
             torch.cuda.synchronize()
             atol, rtol = KERNEL_TOL[dtype]  # at bf16 a logit may round one ulp apart
             errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
             tols = [atol + rtol * w.abs().max().item() for w in want]
-            ok = all(e <= t for e, t in zip(errs, tols))
-            bound_ms, bound_by = consensus_cost(b, n, dtype)
+            ok = all(e <= t for e, t in zip(errs, tols)) and all(
+                tuple(g.shape) == tuple(w.shape) and g.is_contiguous() for g, w in zip(got, want))
+            bound_ms, bound_by = consensus_cost(b, n, dtype, heads, f)
             record = {
-                "phase": "consensus_heads_check", "shape": [b, n, FUSION],
-                "heads": list(CLASS_HEADS),
+                "phase": "consensus_heads_check", "shape": [b, n, f],
+                "heads": list(heads), "offset": offset,
                 "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max(errs),
                 "tolerance": tols, "ok": ok,
-                "ms": event_ms(lambda: kernels.consensus_heads(feats, weights, biases)),
-                "plain_ms": event_ms(lambda: kernels.consensus_heads_plain(feats, weights, biases)),
-                "composition_ms": event_ms(composition), "library_ms": None,
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ms": event_ms(kernel), "graph_ms": graph_ms(kernel),
+                "plain_ms": event_ms(plain), "composition_ms": event_ms(composition),
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             }
             emit(record)
             records.append(record)
             if not ok:
-                failures.append(f"consensus_heads {b}x{n} {dtype}: {errs} > {tols}")
+                failures.append(f"consensus_heads {b}x{n}x{f} {heads} +{offset} {dtype}: "
+                                f"{errs} > {tols}")
+    # heads left on the CPU with features on the card: refused before a launch
+    try:
+        kernels.consensus_heads(feats, [w.cpu() for w in weights], [v.cpu() for v in biases])
+        failures.append("consensus_heads took CPU heads with features on the card")
+    except ValueError:
+        pass
     return records
 
 
@@ -537,7 +580,9 @@ def conv3x3_cost(rows: int, h: int, w: int, c_in: int, c_out: int, dtype) -> tup
 def check_conv3x3(failures: list) -> list:
     """The conv3x3 kernel against its plain version at CONV3X3_CASES, fp32
     (TF32 off) and bf16, weight and bias in the activations' type as the
-    probe passes them: ms (event-timed), graph_ms (CUDA graph), the plain
+    probe passes them; each record names the route the library took (which
+    must be the one kernels.conv3x3_route names): ms (event-timed),
+    graph_ms (CUDA graph), the plain
     version's ms, and library_ms, the cuDNN composition on the same NHWC
     memory (``F.conv2d`` with the bias in channels-last, then ``F.relu``:
     two calls). A bf16 input whose C_in the kernel cannot take must raise.
@@ -572,10 +617,13 @@ def check_conv3x3(failures: list) -> list:
             ok = (err <= tol and tuple(got.shape) == tuple(want.shape)
                   and got.is_contiguous())
             bound_ms, bound_by = conv3x3_cost(rows, h, w, c_in, c_out, dtype)
+            # the route kernels.py names, and the one the library takes
+            route = kernels.conv3x3_route(x.shape, c_out, dtype)
+            library_route = kernels.conv3x3_library_route(x.shape, c_out, dtype)
             record = {
                 "phase": "conv3x3_check", "case": case, "rows": rows,
                 "shape": [h, w, c_in, c_out], "dtype": str(dtype).replace("torch.", ""),
-                "max_abs_err": err, "tolerance": tol, "ok": ok,
+                "route": library_route, "max_abs_err": err, "tolerance": tol, "ok": ok,
                 "library_vs_plain_max_abs": (library().permute(0, 2, 3, 1).float()
                                              - want.float()).abs().max().item(),
                 "ms": event_ms(kernel, 20), "graph_ms": graph_ms(kernel),
@@ -587,7 +635,23 @@ def check_conv3x3(failures: list) -> list:
             records.append(record)
             if not ok:
                 failures.append(f"conv3x3 {case} {dtype}: err {err} > {tol}")
+            if route != library_route:
+                failures.append(f"conv3x3 {case} {dtype}: kernels.py names route {route}, "
+                                f"the library takes {library_route}")
             del x, weight, bias, x_nchw, weight_cl, got, want
+    # a NaN in x reaches every output whose window holds it, on both routes
+    for c_in in (32, 192):
+        x = torch.randn(2, 9, 9, c_in, generator=gen).cuda().to(torch.bfloat16)
+        x[1, 4, 4, 3] = float("nan")
+        weight = torch.randn(16, c_in, 3, 3, generator=gen).cuda().to(torch.bfloat16) / c_in
+        bias = torch.randn(16, generator=gen).cuda().to(torch.bfloat16)
+        got, want = kernels.conv3x3(x, weight, bias), kernels.conv3x3_plain(x, weight, bias)
+        nan_ok = torch.equal(got.isnan(), want.isnan()) and got.isnan().sum().item() == 9 * 16
+        emit({"phase": "conv3x3_nan", "route": kernels.conv3x3_route(x.shape, 16),
+              "nan_outputs": got.isnan().sum().item(), "ok": nan_ok})
+        if not nan_ok:
+            failures.append(f"conv3x3: a NaN in x did not reach the outputs of its windows "
+                            f"(C_in {c_in})")
     x = torch.zeros(1, 5, 5, 12, device="cuda", dtype=torch.bfloat16)
     try:
         kernels.conv3x3(x, torch.zeros(8, 12, 3, 3, device="cuda", dtype=torch.bfloat16),
@@ -709,7 +773,9 @@ def check_wgmma(failures: list) -> None:
     """Hopper's wgmma shared-memory descriptor (ops/csrc/wgmma.cuh) against
     torch.matmul before any kernel uses it: one m64n64k16 product of (64,
     16) bf16 operands in the interleaved layout (no swizzle), then a K = 64
-    product in the 128-byte-swizzled layout both bf16 kernels stage."""
+    product in the 128-byte-swizzled layout the bf16 kernels stage, then a
+    K = 64 product of the register-A form (A by ldmatrix) that conv3x3's
+    resident route issues."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(6)
     for swizzle in (False, True):
@@ -725,6 +791,17 @@ def check_wgmma(failures: list) -> None:
         if not err <= tol:
             failures.append(f"wgmma descriptor, {'128B swizzle' if swizzle else 'no swizzle'}: "
                             f"err {err} > {tol}")
+    # the register-A form: A by ldmatrix from padded rows, B swizzled
+    a, b = (torch.randn(64, 64, generator=gen).to(torch.bfloat16).cuda() for _ in range(2))
+    got = kernels.wgmma_rs_probe(a, b)
+    want = a.float() @ b.float().T
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = WGMMA_RTOL * (1.0 + want.abs().max().item())
+    emit({"phase": "wgmma_check", "layout": "register_a_ldmatrix", "shape": [64, 64, 64],
+          "max_abs_err": err, "tolerance": tol, "ok": err <= tol})
+    if not err <= tol:
+        failures.append(f"wgmma register-A form: err {err} > {tol}")
 
 
 def sass_counts() -> dict:
@@ -1468,7 +1545,7 @@ def main(argv=None) -> int:
           "build_s_by_kernel": build_s, "sass_instructions": sass,
           "ptxas": {n: [line.split("ptxas info    : ")[-1].strip()
                         for line in build.ptxas_report(n).splitlines()
-                        if "Used" in line or "spill" in line]
+                        if "Used" in line or "spill" in line or "wgmma" in line]
                     for n in build.KERNELS}})
     for name in ("pe_block", "mha", "fused_stem", "conv3x3"):  # their bf16 routes run on wgmma
         if sass[name]["HGMMA"] < 1:
@@ -1485,10 +1562,27 @@ def main(argv=None) -> int:
     limits = {str(dt).replace("torch.", ""): (kernels.CONV3X3_LIMITS[dt],
                                                kernels.conv3x3_library_limits(dt))
               for dt in kernels.CONV3X3_LIMITS}
-    emit({"phase": "conv3x3_limits", "python_vs_library": limits})
+    resident_max = (kernels.CONV3X3_RESIDENT_MAX_C_IN,
+                    kernels._library("conv3x3").conv3x3_resident_max_c_in())
+    emit({"phase": "conv3x3_limits", "python_vs_library": limits,
+          "resident_max_c_in": resident_max})
     for dt, (stated, built) in limits.items():
         if tuple(stated) != tuple(built):
             failures.append(f"conv3x3 limits at {dt}: kernels.py says {stated}, "
+                            f"the library {built}")
+    if resident_max[0] != resident_max[1]:
+        failures.append(f"conv3x3 resident route's largest C_in: kernels.py says "
+                        f"{resident_max[0]}, the library {resident_max[1]}")
+
+    limits = {"max_features": (kernels.CONSENSUS_MAX_FEATURES,
+                               kernels._library("consensus_heads").consensus_heads_max_features()),
+              "max_heads": (kernels.CONSENSUS_MAX_HEADS,
+                            kernels._library("consensus_heads").consensus_heads_max_heads())}
+    emit({"phase": "consensus_heads_limits", "python_vs_library": limits,
+          "cluster": kernels._library("consensus_heads").consensus_heads_cluster()})
+    for name, (stated, built) in limits.items():
+        if stated != built:
+            failures.append(f"consensus_heads {name}: kernels.py says {stated}, "
                             f"the library {built}")
 
     check_wgmma(failures)
@@ -1504,8 +1598,8 @@ def main(argv=None) -> int:
     main_case["fused_stem"] = stem_forward_summary(stem_records, TEST_STEMS, "bfloat16")
     consensus_records = check_consensus_heads(failures)
     main_case["consensus_heads"] = next(
-        r for r in consensus_records
-        if tuple(r["shape"][:2]) == CONSENSUS_SHAPES[-1] and r["dtype"] == "bfloat16")
+        r for r in consensus_records if r["shape"] == [*CONSENSUS_SHAPES[-1], FUSION]
+        and r["dtype"] == "bfloat16" and tuple(r["heads"]) == CLASS_HEADS)
     conv3x3_records = check_conv3x3(failures)
     main_case["conv3x3"] = next(  # the probe's default shape and type
         r for r in conv3x3_records if r["case"] == "probe" and r["dtype"] == "bfloat16")

@@ -127,3 +127,110 @@ def test_cuda_kernel_matches_plain_on_the_card(dtype):
     rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
     for g, want in zip(got, kernels.consensus_heads_plain(x, w, v)):
         torch.testing.assert_close(g, want, rtol=rtol, atol=1e-5)
+
+
+# ---------------------------------------------------------- kernel operands
+
+
+def _heads(classes=(11, 13), f=64, dtype=torch.bfloat16, seed=1):
+    _, weights, biases = _case(f=f, classes=classes, seed=seed)
+    return ([torch.from_numpy(w).to(dtype) for w in weights],
+            [torch.from_numpy(v).to(dtype) for v in biases])
+
+
+def test_operands_are_made_once_per_version():
+    """The ctypes pointer and class-count arrays are built once per version
+    of the heads' tensors (as conv3x3_operands): a repeated call returns the
+    same object, an in-place update of a weight makes new ones."""
+    weights, biases = _heads(classes=(11, 13, 7))
+    ops = kernels.consensus_heads_operands(weights, biases)
+    assert ops.count == 3 and ops.total == 31 and ops.features == 64
+    assert list(ops.class_counts) == [11, 13, 7] and ops.heads == [(11, 0), (13, 11), (7, 24)]
+    assert list(ops.weight_ptrs) == [w.data_ptr() for w in weights]
+    assert list(ops.bias_ptrs) == [v.data_ptr() for v in biases]
+    assert ops.device_index == -1  # heads off the card: no CUDA tensor's get_device()
+    assert kernels.consensus_heads_operands(tuple(weights), tuple(biases)) is ops
+    weights[1].add_(0)
+    again = kernels.consensus_heads_operands(weights, biases)
+    assert again is not ops and list(again.weight_ptrs) == list(ops.weight_ptrs)
+    assert kernels.consensus_heads_operands(weights, biases) is again
+    other = [w.clone() for w in weights]
+    assert kernels.consensus_heads_operands(other, biases) is not again
+
+
+PARAM_ERRORS = {
+    "five_heads": (lambda w, b: (w * 5, b * 5), "1 to 4 heads"),
+    "bias_count": (lambda w, b: (w, b[:1]), "1 to 4 heads"),
+    "feature_width": (lambda w, b: ([w[0], w[1][:, :32].contiguous()], b), "do not fit"),
+    "bias_shape": (lambda w, b: (w, [b[0], b[1][:5]]), "do not fit"),
+    "mixed_types": (lambda w, b: ([w[0], w[1].float()], b), "contiguous"),
+    "not_contiguous": (lambda w, b: ([w[0], w[1].T.contiguous().T], b), "contiguous"),
+    "too_wide": (lambda w, b: ([torch.zeros(3, 4097, dtype=torch.bfloat16)],
+                               [torch.zeros(3, dtype=torch.bfloat16)]), "F <= 4096"),
+    "int_type": (lambda w, b: ([x.int() for x in w], [x.int() for x in b]), "dtype"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARAM_ERRORS))
+def test_operands_refuse_what_the_kernel_cannot_take(case):
+    make, message = PARAM_ERRORS[case]
+    weights, biases = make(*_heads())
+    assert message in kernels.consensus_heads_params_error(weights, biases)
+    with pytest.raises(ValueError, match=message):
+        kernels.consensus_heads_operands(weights, biases)
+
+
+# (B, N, F, heads, offset) on the card: one segment row (fewer rows than
+# the cluster's 8 blocks); 25 rows split over the cluster; F = 1024 (a
+# single-modality model without Fusion); one clip; one, three and four
+# heads; and the element-wise loads: F = 100 (not a multiple of 8 or 4), and
+# features `offset` elements into their buffer (not on 16 bytes).
+CARD_CASES = {
+    "n_1": (2, 1, 512, (125, 352), 0),
+    "n_25": (10, 25, 512, (125, 352), 0),
+    "f_1024": (2, 25, 1024, (125, 352), 0),
+    "b_1": (1, 250, 512, (125, 352), 0),
+    "one_head": (2, 25, 512, (97,), 0),
+    "three_heads": (2, 25, 512, (125, 352, 97), 0),
+    "four_heads": (3, 10, 512, (125, 352, 97, 8), 0),
+    "f_100": (2, 25, 100, (125, 352), 0),
+    "offset_features": (2, 25, 512, (125, 352), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_cuda_kernel_matches_plain_at_every_shape(case, dtype):
+    """The cluster kernel against its plain version at KERNEL_TOL (|err| <=
+    atol + rtol x max |plain|: 1e-4 at fp32, a summation order apart; 1e-2 at
+    bf16, a logit one bf16 rounding apart), each head a contiguous (B, C_h)
+    float32 tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    b, n, f, classes, offset = CARD_CASES[case]
+    feats, weights, biases = _case(b=b, n=n, f=f, classes=classes, seed=b + n)
+    x = torch.empty(offset + feats.size, device="cuda", dtype=dtype)[offset:].view(b, n, f)
+    x.copy_(torch.from_numpy(feats))
+    w = [torch.from_numpy(a).cuda().to(dtype) for a in weights]
+    v = [torch.from_numpy(a).cuda().to(dtype) for a in biases]
+    got = kernels.consensus_heads(x, w, v)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, want, c in zip(got, kernels.consensus_heads_plain(x, w, v), classes):
+        assert g.shape == (b, c) and g.dtype == torch.float32 and g.is_contiguous()
+        assert (g - want).abs().max().item() <= tol + tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_heads_off_the_card():
+    """Heads left on the CPU with features on the card raise before a
+    launch: host pointers never reach the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    feats, weights, biases = _case(b=2, n=25, f=512, classes=(125, 352))
+    before = kernels.consensus_heads.launches
+    with pytest.raises(ValueError, match="one card"):
+        kernels.consensus_heads(torch.from_numpy(feats).cuda(),
+                                [torch.from_numpy(w) for w in weights],
+                                [torch.from_numpy(v) for v in biases])
+    assert kernels.consensus_heads.launches == before

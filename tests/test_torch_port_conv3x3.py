@@ -253,3 +253,83 @@ def test_cuda_kernel_matches_plain_on_the_card(dtype):
             _assert_fp32_close(got.cpu().numpy(), want.cpu().numpy())
         else:
             assert_bf16_match(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+# ----------------------------------------------------------------- routes
+
+# (x shape, C_out, route) at bf16: the probe's default and BN-Inception's
+# inception_3a_double_3x3_1 keep the N tile's weight in shared memory; the
+# weight of inception_5a_3x3 (C_in 192) does not fit beside the halos.
+ROUTE_CASES = {
+    "probe": ((200, 28, 28, 96), 128, "resident"),
+    "inception_3a_double_3x3_1": ((250, 28, 28, 64), 96, "resident"),
+    "inception_5a_3x3": ((250, 7, 7, 192), 320, "streaming"),
+    "ragged": ((1, 13, 17, 24), 40, "resident"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_route_by_shape(case):
+    shape, c_out, route = ROUTE_CASES[case]
+    assert kernels.conv3x3_route(shape, c_out) == route
+    assert kernels.conv3x3_route(shape, c_out, torch.float32) == "fma"
+
+
+def test_resident_route_is_the_largest_that_fits_a_block():
+    """The resident route takes C_in up to 96 (conv3x3.cu resident::kMaxCin:
+    the largest whose block fits the H100's 227 KB of shared memory); from
+    104 the weight streams."""
+    assert kernels.CONV3X3_RESIDENT_MAX_C_IN == 96
+    assert kernels.conv3x3_route((1, 4, 4, 96), 8) == "resident"
+    assert kernels.conv3x3_route((1, 4, 4, 104), 8) == "streaming"
+    assert kernels.CONV3X3_ROUTES == ("fma", "streaming", "resident")
+
+
+@pytest.mark.parametrize("c_in, c_out", [(12, 8), (8, 12), (0, 8)])
+def test_route_refuses_shapes_no_route_takes(c_in, c_out):
+    with pytest.raises(ValueError, match="no route"):
+        kernels.conv3x3_route((1, 4, 4, c_in), c_out)
+
+
+# (B, H, W, C_in, C_out) on the card: a 7 x 7 image smaller than a tile; W
+# = 17, not a multiple of the tile's 32 columns; several images in one
+# batch; C_in 192, the streaming route.
+CARD_CASES = {
+    "image_smaller_than_a_tile": (3, 7, 7, 32, 64),
+    "w_17": (2, 9, 17, 16, 24),
+    "several_images": (6, 12, 12, 64, 96),
+    "streaming_c_in_192": (4, 7, 7, 192, 320),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_cuda_routes_match_plain_on_the_card(case):
+    """Each bf16 route against the plain version at KERNEL_TOL (|err| <=
+    1e-2 + 1e-2 x max |plain|, chip_smoke.py's bound: one bf16 rounding
+    apart), on the route conv3x3_route names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    b, h, w, c_in, c_out = CARD_CASES[case]
+    x, weight, bias = (t.cuda() for t in _port(*_inputs(b, h, w, c_in, c_out, seed=11), BF16))
+    assert kernels.conv3x3_library_route(x.shape, c_out) == kernels.conv3x3_route(x.shape, c_out)
+    got = kernels.conv3x3(x, weight, bias).float()
+    want = kernels.conv3x3_plain(x, weight, bias).float()
+    assert (got - want).abs().max().item() <= 1e-2 + 1e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", [32, 192], ids=["resident", "streaming"])
+def test_cuda_nan_in_x_reaches_the_output(c_in):
+    """A NaN in x reaches every output whose window holds it, as the plain
+    version's (ReLU propagates NaN), and no other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    x, weight, bias = (t.cuda() for t in _port(*_inputs(2, 9, 9, c_in, 16, seed=12), BF16))
+    x[1, 4, 4, 3] = float("nan")
+    got = kernels.conv3x3(x, weight, bias).float()
+    want = kernels.conv3x3_plain(x, weight, bias).float()
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == 9 * 16
+    finite = ~want.isnan()
+    assert (got[finite] - want[finite]).abs().max().item() <= (
+        1e-2 + 1e-2 * want[finite].abs().max().item())
