@@ -1,13 +1,16 @@
 """Command line of the port: the JAX package's ``main.py`` override surface.
 
+    python -m attention_based_tbn_tpu_torch.main train.enable=true data_dir=/data/epic ...
     python -m attention_based_tbn_tpu_torch.main train.enable=false test.enable=true \\
         test.pre_trained=/path/weights.pth data_dir=/data/epic ...
 
 Composes the config (``config/defaults`` of the port, same keys), makes
 the hydra-style run dir ``<out_dir>/log/<exp_name>/run_...``, sets up the
-run log, and runs evaluation (``tools/test.run_tester``). The device is
-CUDA unless ``tpu.platform=cpu`` asks for the CPU. Training from here
-(``train.enable=true``) raises until ``run_trainer`` is ported.
+run log and the TensorBoard writer, then trains (``train.enable``:
+``tools/train.run_trainer``, checkpoints under
+``<out_dir>/<model.checkpoint_dir>/<exp_name>/``) and evaluates
+(``test.enable``: ``tools/test.run_tester`` on ``test.pre_trained``). The
+device is CUDA unless ``tpu.platform=cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def main(argv=None):
     modality = get_modality(cfg)
     run_dir = make_run_dir(cfg)
     cfg.run_dir = run_dir
-    logger, _ = setup_log(modality, run_dir)
+    logger, writer = setup_log(modality, run_dir)
     logger.info("Initializing the pipeline...")
     logger.info(cfg.pretty())
     logger.info(f"Modality: {modality}")
@@ -67,11 +70,10 @@ def main(argv=None):
     results = None
     try:
         if cfg.train.enable:
-            raise NotImplementedError(
-                "train.enable=true: run_trainer (with checkpoint save and resume) is not "
-                "ported yet; train with the JAX package's main.py, or pass "
-                "train.enable=false test.enable=true to evaluate"
-            )
+            logger.info("Training the model.")
+            from .tools.train import run_trainer
+
+            run_trainer(cfg, logger, modality, writer, device=device)
         if cfg.test.enable:
             logger.info("Evaluating the model.")
             from .tools.test import run_tester
@@ -80,6 +82,9 @@ def main(argv=None):
     except Exception as exc:  # noqa: BLE001 — logged into the run dir, then raised
         logger.exception(exc)
         raise
+    finally:
+        if writer is not None:
+            writer.close()
     return results
 
 

@@ -10,6 +10,8 @@ the JAX package's ``models/convert_back.export_tbn_state_dict`` emits:
 * :func:`jax_to_state_dict` — variables (numpy) -> state dict (numpy), for
   ``load_state_dict(strict=True)``; buffers the reference also stores (the
   PE table, the prototype curves, ``num_batches_tracked``) are regenerated.
+* :func:`jax_tower_to_state_dict` — the same for one tower's trees, as a
+  converted pretrained ``.npz`` tower holds them (models/convert.py).
 * :func:`state_dict_to_jax` — the inverse, so that weights drawn by the
   port can be fed to the JAX package (the tests do).
 * :func:`conv3x3_weight_from_jax` / :func:`conv3x3_weight_to_jax` — one
@@ -66,6 +68,28 @@ def _emit_conv_bn(out: Dict[str, np.ndarray], key: str, node: Mapping,
     out[f"{key}_bn.num_batches_tracked"] = np.zeros((), dtype=np.int64)
 
 
+def _emit_tower(out: Dict[str, np.ndarray], prefix: str, params: Mapping,
+                stats: Optional[Mapping]) -> None:
+    """A BN-Inception tower's Flax tree -> ``prefix + <module>.*`` keys."""
+    for name, sub in params.items():
+        sub_stats = _get(stats, name)
+        if "conv" in sub:
+            _emit_conv_bn(out, f"{prefix}{name}", sub, sub_stats)
+        else:  # inception block: children are branch cells
+            for branch, cell in sub.items():
+                _emit_conv_bn(out, f"{prefix}{name}_{branch}", cell, _get(sub_stats, branch))
+
+
+def jax_tower_to_state_dict(params: Mapping, stats: Optional[Mapping] = None
+                            ) -> Dict[str, np.ndarray]:
+    """One BN-Inception tower's Flax ``params`` / ``batch_stats`` trees (as
+    a converted ``.npz`` tower holds them) -> the tower's state dict, keys
+    relative to the tower (``conv1_7x7_s2.weight``, ...)."""
+    out: Dict[str, np.ndarray] = {}
+    _emit_tower(out, "", params, stats)
+    return out
+
+
 def jax_to_state_dict(variables: Mapping[str, Any], spec) -> Dict[str, np.ndarray]:
     """Flax TBN variables -> the port's (reference-layout) state dict."""
     if spec.arch != "bninception":
@@ -75,16 +99,8 @@ def jax_to_state_dict(variables: Mapping[str, Any], spec) -> Dict[str, np.ndarra
     out: Dict[str, np.ndarray] = {}
 
     for tower, node in params.items():
-        if not tower.startswith("Base_"):
-            continue
-        for name, sub in node.items():
-            sub_stats = _get(stats, tower, name)
-            if "conv" in sub:
-                _emit_conv_bn(out, f"{tower}.{name}", sub, sub_stats)
-            else:  # inception block: children are branch cells
-                for branch, cell in sub.items():
-                    _emit_conv_bn(out, f"{tower}.{name}_{branch}", cell,
-                                  _get(sub_stats, branch))
+        if tower.startswith("Base_"):
+            _emit_tower(out, f"{tower}.", node, _get(stats, tower))
 
     fusion = _get(params, "fusion", "fc")
     if fusion is not None:

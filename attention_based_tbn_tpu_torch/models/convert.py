@@ -1,0 +1,71 @@
+"""Pretrained BN-Inception tower weights -> a tower of the port.
+
+Port of the JAX package's ``models/convert.py`` (``convert_bninception``,
+``adapt_first_conv_at``) and ``models/convert_cli.py`` (``load_npz``) for
+the files ``models/builder.load_pretrained_towers`` reads:
+
+* a pretrainedmodels BN-Inception state dict (``imagenet_bninception_rgb.pth``,
+  ``kinetics_bninception_flow.pth``; reference weights/download.sh). The
+  port keeps the reference key layout, so its tower takes the keys as they
+  are, without the ImageNet / Kinetics classifier (``last_linear``) and
+  the ``num_batches_tracked`` counters;
+* the same tower converted by the JAX package to a ``.npz`` of Flax trees
+  (``params/<path>``, ``batch_stats/<path>``), through
+  ``bridge.jax_tower_to_state_dict``.
+
+A first conv with other input channels than the modality's is averaged
+over its input channels and tiled to them (TSN cross-modality init,
+reference bn_inception.py:78-80), in the port's OIHW layout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .bridge import jax_tower_to_state_dict
+
+
+def convert_bninception(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """pretrainedmodels BN-Inception state dict -> the port's tower state
+    dict (float32; no classifier, no batch counters)."""
+    return {k: torch.as_tensor(v).to(torch.float32) for k, v in state_dict.items()
+            if not k.startswith("last_linear") and not k.endswith("num_batches_tracked")}
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def load_npz_tower(path: str) -> Dict[str, torch.Tensor]:
+    """A tower converted to ``.npz`` by the JAX package (``params/...`` and
+    ``batch_stats/...`` arrays) -> the port's tower state dict."""
+    with np.load(path) as data:
+        trees = {prefix: _unflatten({k[len(prefix) + 1:]: data[k] for k in data.files
+                                     if k.startswith(prefix + "/")})
+                 for prefix in ("params", "batch_stats")}
+    state = jax_tower_to_state_dict(trees["params"], trees["batch_stats"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def adapt_first_conv(state: Dict[str, torch.Tensor], in_channels: int,
+                     conv: str = "conv1_7x7_s2") -> Dict[str, torch.Tensor]:
+    """Replace the (O, I, H, W) weight of ``conv`` by its mean over the I
+    input channels, tiled to ``in_channels`` (the JAX package's
+    ``adapt_first_conv_at``; a float32 numpy mean, whose in-order sum is
+    the JAX package's)."""
+    weight = state[f"{conv}.weight"].to(torch.float32).numpy()
+    mean = weight.mean(axis=1, keepdims=True)
+    state[f"{conv}.weight"] = torch.from_numpy(np.tile(mean, (1, in_channels, 1, 1)))
+    return state
+

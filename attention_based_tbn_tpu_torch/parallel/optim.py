@@ -136,6 +136,27 @@ class Optimizer:
             p.grad = None
         return True
 
+    def state_dict(self) -> Dict:
+        """What a restored optimizer needs to step exactly as this one
+        would: the inner ``torch.optim`` state (momentum or Adam moments,
+        the learning rate) and the partial accumulation of
+        ``accumulator_step`` (its running mean and micro-step count)."""
+        return {"inner": self.inner.state_dict(), "acc": list(self._acc),
+                "micro": self._micro, "lr": self.current_learning_rate()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        if not isinstance(state, dict) or set(state) != {"inner", "acc", "micro", "lr"}:
+            raise ValueError("not an optimizer state of the port (Optimizer.state_dict): "
+                             f"keys {sorted(state) if isinstance(state, dict) else state!r}")
+        acc = list(state["acc"])
+        if acc and len(acc) != len(self.trainable):
+            raise ValueError(f"the saved accumulation holds {len(acc)} tensors for "
+                             f"{len(self.trainable)} trainable parameters")
+        self.inner.load_state_dict(state["inner"])
+        self._acc = [a.to(p.device, p.dtype) for a, p in zip(acc, self.trainable)]
+        self._micro = int(state["micro"])
+        self.set_learning_rate(state["lr"])
+
     def set_learning_rate(self, lr: float) -> None:
         for group in self.inner.param_groups:
             group["lr"] = float(lr)

@@ -11,9 +11,19 @@ whether the forward and the loss get a pad-row mask at all: a full batch
 
 The state is updated in place (the model's parameters and statistics, the
 optimizer's buffers, the step count, the generator); each step returns it
-so that callers read like the JAX package's. The scanned and the fused
-accumulation steps (``make_multi_train_step``, ``make_fused_accum_step``)
-are opt-ins that are not ported yet.
+so that callers read like the JAX package's.
+
+Noise: every dropout and gumbel draw of a run comes from ONE
+``torch.Generator`` that runs on across steps and epochs, where the JAX
+package folds the epoch into its key (tools/train.py:399). The generator's
+state is part of the checkpoint (:meth:`TrainState.state_dict`), so a
+resumed run draws what an uninterrupted one would have drawn.
+
+The JAX package's scanned and fused accumulation steps
+(``make_multi_train_step`` under ``tpu.steps_per_call``,
+``make_fused_accum_step`` under ``tpu.fuse_accum``) group steps into one
+TPU dispatch; they state the math of sequential steps, which is what the
+port runs (``tools/train.run_trainer`` warns that the keys do nothing).
 """
 
 from __future__ import annotations
@@ -43,6 +53,23 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The optimizer's state, the generator's state and the step count
+        (the model's weights are saved on their own, in the reference
+        layout)."""
+        return {"optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(), "step": int(self.step)}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Restore what :meth:`state_dict` holds; keys a file lacks keep
+        their current value."""
+        if "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
+        if "generator" in state:
+            self.generator.set_state(torch.as_tensor(state["generator"], dtype=torch.uint8))
+        if "step" in state:
+            self.step = int(state["step"])
 
 
 def create_train_state(cfg, model: TBNModel, seed: int = None) -> TrainState:

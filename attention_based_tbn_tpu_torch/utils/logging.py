@@ -1,9 +1,10 @@
 """Run logging: a Python logger to the console and the run directory, and
 a TensorBoard writer when tensorboardX imports.
 
-Port of the JAX package's ``utils/logging.setup_log`` (reference
+Port of the JAX package's ``utils/logging.py``: ``setup_log`` (reference
 core/utils/log.py: format ``%(levelname)s : %(asctime)s : %(message)s``,
-console and file).
+console and file) and ``Plotter`` (reference core/utils/plot.py: scalars
+and the config as text).
 """
 
 from __future__ import annotations
@@ -40,3 +41,19 @@ def setup_log(modality: List[str], run_dir: Optional[str] = None):
         if SummaryWriter is not None:
             writer = SummaryWriter(logdir=run_dir)
     return logger, writer
+
+
+class Plotter:
+    """Scalars and a config dump to the TensorBoard writer of
+    :func:`setup_log`; does nothing without one."""
+
+    def __init__(self, writer):
+        self.writer = writer
+
+    def plot_scalar(self, scalar, epoch: int, out_name: str) -> None:
+        if self.writer is not None and scalar is not None:
+            self.writer.add_scalar(out_name, scalar, epoch)
+
+    def add_config(self, cfg) -> None:
+        if self.writer is not None:
+            self.writer.add_text("config", cfg.pretty().replace("\n", "  \n"), 0)

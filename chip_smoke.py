@@ -17,7 +17,7 @@ type as the models pass them: conv3x3 also at BN-Inception shapes (one on
 its streaming route) and a ragged one, each record naming the route the
 library took (``route``), and a NaN input; consensus_heads with its device
 time by CUDA graph (``graph_ms``) at every shape, plus one-row, one-clip,
-F = 1024 and one-, three- and four-head cases. Then drives four paths,
+F = 1024 and one-, three- and four-head cases. Then drives five paths,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -46,7 +46,17 @@ after:
   of 12 clips and a ragged one of 7), then ``validate`` on 2 batches of 2
   clips x 25 segments; step time, memory and a device profile of one step;
   and one float32 step with the pool kernel against the same step with the
-  plain pool.
+  plain pool;
+* the training entry point: the port's ``main`` in train mode on a Flow +
+  Audio fixture (41 training clips: 3 batches of 12 and a ragged one of 5;
+  4 validation clips at 25 segments) with ``model.pretrained`` towers from
+  seeded pretrainedmodels-layout files (the Audio conv1 adapted from 3
+  channels), 2 epochs with validation and the best checkpoint; ``main``
+  again to resume 1 epoch from the ``.pth`` (the log must continue from
+  epoch 3, the history hold 3 epochs); the ``.pth`` reloaded into a fresh
+  train state, bit-equal to the trained one; ``main`` in test mode from
+  it with the fused stem and fast consensus (the challenge JSON complete).
+  The kernels line's launches are this path's (conv3x3's the probe's).
 
 One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -87,7 +97,9 @@ from attention_based_tbn_tpu_torch.parallel.train_step import (
 )
 from attention_based_tbn_tpu_torch.tools import fused_block_probe
 from attention_based_tbn_tpu_torch.tools.serve import ServingModel, bench, make_server
-from attention_based_tbn_tpu_torch.tools.train import train_one_epoch, validate
+from attention_based_tbn_tpu_torch.tools import train as port_train
+from attention_based_tbn_tpu_torch.tools.train import checkpoint_stem, train_one_epoch, validate
+from attention_based_tbn_tpu_torch.utils import checkpoint
 from attention_based_tbn_tpu_torch.utils.metrics import Metric
 from attention_based_tbn_tpu_torch.utils.misc import get_modality
 from attention_based_tbn_tpu_torch.utils.timing import event_ms, graph_ms
@@ -186,6 +198,11 @@ TOWERS = {"Base_RGB": "visual", "Base_Flow": "visual", "Base_Audio": "audio"}
 TRAIN_OVERRIDES = ["model.pretrained=false", "tpu.pool_impl=pallas"]
 TRAIN_BATCHES = [12] * 6 + [7]  # a single-card loader does not pad: the last is ragged
 VAL_BATCHES = [2, 2]
+# The training entry point (trainer_path): the port's main in train mode on
+# a Flow + Audio fixture, 3 full batches of 12 clips and a ragged one of 5,
+# validated on 4 clips at 25 segments; pretrained towers from seeded files.
+TRAINER_TRAIN_CLIPS, TRAINER_VAL_CLIPS = 3 * 12 + 5, 4
+TRAINER_KERNELS = ("max_pool", "pe_block", "mha", "fused_stem", "consensus_heads")
 # One float32 step (TF32 off, dropout 0, deterministic cuDNN) with the pool
 # kernel vs the plain pool: the pools are exact, so any gap is cuDNN's
 # summation order; loss and parameters within this relative tolerance.
@@ -1520,6 +1537,217 @@ def evaluation_path(card: str, failures: list) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def write_pretrained(directory: str, seed: int) -> dict:
+    """Seeded pretrainedmodels-layout BN-Inception towers, written with
+    numpy values: ``imagenet_bninception_rgb.pth`` (3-channel conv1, a
+    1000-class head) and ``kinetics_bninception_flow.pth`` (10 channels, a
+    400-class head). He-scaled weights and BatchNorm statistics near (0, 1),
+    so an evaluation forward on them stays finite. Returns {file: bytes}."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+
+    def tower(in_channels, classes):
+        sd = {}
+
+        def conv(name, cin, cout, k):
+            fan_in = cin * k * k
+            sd[f"{name}.weight"] = rng.standard_normal((cout, cin, k, k)) * np.sqrt(2 / fan_in)
+            sd[f"{name}.bias"] = rng.standard_normal(cout) * 0.01
+            sd[f"{name}_bn.weight"] = rng.uniform(0.8, 1.2, cout)
+            sd[f"{name}_bn.bias"] = rng.standard_normal(cout) * 0.05
+            sd[f"{name}_bn.running_mean"] = rng.standard_normal(cout) * 0.05
+            sd[f"{name}_bn.running_var"] = rng.uniform(0.8, 1.2, cout)
+
+        conv("conv1_7x7_s2", in_channels, 64, 7)
+        conv("conv2_3x3_reduce", 64, 64, 1)
+        conv("conv2_3x3", 64, 192, 3)
+        width = 192
+        for name, b in BN_INCEPTION_BLOCKS:
+            if b.b1x1:
+                conv(f"{name}_1x1", width, b.b1x1, 1)
+            conv(f"{name}_3x3_reduce", width, b.r3x3, 1)
+            conv(f"{name}_3x3", b.r3x3, b.b3x3, 3)
+            conv(f"{name}_double_3x3_reduce", width, b.rd3x3, 1)
+            conv(f"{name}_double_3x3_1", b.rd3x3, b.d3x3, 3)
+            conv(f"{name}_double_3x3_2", b.d3x3, b.d3x3, 3)
+            if b.proj:
+                conv(f"{name}_pool_proj", width, b.proj, 1)
+            width = b.b1x1 + b.b3x3 + b.d3x3 + (b.proj or width)
+        sd["last_linear.weight"] = rng.standard_normal((classes, width)) * 0.01
+        sd["last_linear.bias"] = np.zeros(classes)
+        return {k: torch.from_numpy(v.astype(np.float32)) for k, v in sd.items()}
+
+    sizes = {}
+    for name, in_channels, classes in (("imagenet_bninception_rgb", 3, 1000),
+                                       ("kinetics_bninception_flow", 10, 400)):
+        path = os.path.join(directory, name + ".pth")
+        torch.save(tower(in_channels, classes), path)
+        sizes[name + ".pth"] = os.path.getsize(path)
+    return sizes
+
+
+def read_json(path: str):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def launch_counts() -> dict:
+    counts = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+    counts["max_pool_backward"] = kernels.ceil_max_pool2d.backward_launches
+    return counts
+
+
+def state_equal(state, other) -> dict:
+    """Which parts of two train states are bit-equal: the model's state
+    dict, the optimizer's momentum, the generator, the step."""
+    own, theirs = state.model.state_dict(), other.model.state_dict()
+    model = set(own) == set(theirs) and all(torch.equal(own[k], theirs[k]) for k in own)
+    opt, opt2 = state.optimizer.inner, other.optimizer.inner
+    momentum = all(
+        torch.equal(opt.state[p]["momentum_buffer"], opt2.state[q]["momentum_buffer"])
+        for p, q in zip(state.optimizer.trainable, other.optimizer.trainable) if p in opt.state)
+    return {"model": model, "momentum": momentum,
+            "generator": torch.equal(state.generator.get_state(), other.generator.get_state()),
+            "step": state.step == other.step}
+
+
+def trainer_path(card: str, failures: list) -> dict:
+    """The training entry point at full width: the port's main in train
+    mode on a Flow (.npz) + Audio (WAV) fixture with pretrained towers from
+    seeded files, 2 epochs with validation and the best checkpoint; main
+    again to resume 1 epoch from the written .pth; the .pth reloaded into a
+    fresh train state (bit-equal to the trained one); main in test mode
+    from it with the fused stem and fast consensus. Launch counts set to 0
+    just before the first main and read after each step. Returns the
+    launches of the whole phase."""
+    root = tempfile.mkdtemp(prefix=".smoke_fixture_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        start = time.perf_counter()
+        videos = TRAINER_TRAIN_CLIPS + TRAINER_VAL_CLIPS
+        write_test_fixture(root, videos=videos, actions=1, frames=120, seed=9)
+        names = [f"P{v + 1:02d}_01" for v in range(videos)]
+        for split, vids in (("train", names[:TRAINER_TRAIN_CLIPS]),
+                            ("val", names[TRAINER_TRAIN_CLIPS:])):
+            with open(os.path.join(root, f"{split}_split.txt"), "w") as fh:
+                fh.write("\n".join(vids) + "\n")
+        weight_files = write_pretrained(os.path.join(root, "weights"), seed=4)
+        setup_s = time.perf_counter() - start
+        overrides = [
+            "data.rgb.enable=false", "model.pretrained=true", f"model.weights_dir={root}/weights",
+            "tpu.pool_impl=pallas", "train.enable=true", "test.enable=false", "val.enable=true",
+            "train.save_best=true", "train.epochs=2", f"data_dir={root}", f"out_dir={root}/out",
+            "exp_name=trainer", "data.flow.read_flow_pickle=true", "data.flow.dir_prefix=flow",
+            "train.annotation_file=annotations/labelled.csv",
+            f"train.vid_list={root}/train_split.txt", f"val.vid_list={root}/val_split.txt",
+        ]
+        cfg = load_config(overrides=overrides)
+        modality = get_modality(cfg)
+        stem = checkpoint_stem(cfg, modality)
+        states = []
+        run_trainer = port_train.run_trainer
+
+        def keep_state(*args, **kwargs):  # main's trainer, its final state kept
+            states.append(run_trainer(*args, **kwargs))
+            return states[-1]
+
+        port_train.run_trainer = keep_state
+        steps = {}
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            port_main.main(overrides)
+            torch.cuda.synchronize()
+            steps["train"] = {"wall_s": time.perf_counter() - start, "launches": launch_counts()}
+            history = read_json(checkpoint.history_path(stem))
+            trained = {"epochs": len(history["train_loss"]), "train_loss": history["train_loss"],
+                       "validation_loss": history["validation_loss"],
+                       "validation_accuracy": history["validation_accuracy"],
+                       "best": os.path.isfile(stem + "_best.pth")}
+            start = time.perf_counter()
+            port_main.main(overrides + [f"train.pre_trained={stem}.pth", "train.epochs=1"])
+            torch.cuda.synchronize()
+            steps["resume"] = {"wall_s": time.perf_counter() - start, "launches": launch_counts()}
+        finally:
+            port_train.run_trainer = run_trainer
+        history = read_json(checkpoint.history_path(stem))
+        continued = run_log_lines(os.path.join(root, "out"), "Model will continue training")
+        resumed = {"epochs": len(history["train_loss"]), "epoch": history["epoch"],
+                   "continue_log": [line.split(" : ")[-1] for line in continued]}
+
+        # the checkpoint reloaded into a fresh train state
+        trained_state = states[-1]
+        fresh = create_train_state(cfg, build_model(cfg, modality, device="cuda", seed=123))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        checkpoint.restore_checkpoint(stem + ".pth", fresh)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - start) * 1e3
+        reload_equal = state_equal(trained_state, fresh)
+        start = time.perf_counter()
+        checkpoint.save_checkpoint(os.path.join(root, "resave", "tbn"), fresh, history["epoch"])
+        save_ms = (time.perf_counter() - start) * 1e3
+        del fresh, trained_state, states[:]
+        torch.cuda.empty_cache()
+
+        # test mode from the same .pth, the fused stem and fast consensus
+        test_over = overrides + [
+            "train.enable=false", "test.enable=true", f"test.pre_trained={stem}.pth",
+            "tpu.fused_stem=true", "tpu.fast_consensus=true", "test.ten_crop=true",
+            "test.save_results=true", "test.annotation_file=[annotations/labelled.csv]",
+            "test.results_file=[trainer.json]", f"test.vid_list={root}/val_split.txt",
+            "exp_name=trainer_test"]
+        start = time.perf_counter()
+        results = port_main.main(test_over)
+        torch.cuda.synchronize()
+        steps["test"] = {"wall_s": time.perf_counter() - start, "launches": launch_counts()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches = steps["test"]["launches"]
+        scores = read_scores(os.path.join(root, "out", "inferences", "trainer.json"))
+        complete = (len(scores) == TRAINER_VAL_CLIPS and all(
+            len(v) == CLASS_HEADS[0] and len(n) == CLASS_HEADS[1]
+            and np.isfinite(v).all() and np.isfinite(n).all() for v, n in scores.values()))
+
+        throughput = [line.split(" : ")[-1] for line in
+                      run_log_lines(os.path.join(root, "out", "log", "trainer"),
+                                    "Train epoch throughput")]
+        step_lines = [line.split(" : ")[-1] for line in
+                      run_log_lines(os.path.join(root, "out", "log", "trainer"), "s/step")]
+        result = {
+            "phase": "trainer_path", "gpu": card, "setup_s": setup_s,
+            "pretrained_files": weight_files, "train_clips": TRAINER_TRAIN_CLIPS,
+            "val_clips": TRAINER_VAL_CLIPS, "trained": trained, "resumed": resumed,
+            "reload_bit_equal": reload_equal, "checkpoint_bytes": os.path.getsize(stem + ".pth"),
+            "save_ms": save_ms, "restore_ms": restore_ms, "steps": steps,
+            "test_loss": results[0][0] if results and results[0] else None,
+            "challenge_json_complete": complete, "peak_memory_gib": peak_gib,
+            "throughput_log": throughput, "step_log": step_lines, "launches": launches,
+        }
+        emit(result)
+        for line in throughput:
+            print(f"trainer path: {line}", flush=True)
+        losses = [v for h in (history["train_loss"], history["validation_loss"])
+                  for epoch in h for v in epoch.values()]
+        if not (losses and all(np.isfinite(losses))):
+            failures.append(f"trainer path: non-finite losses {history}")
+        if trained["epochs"] != 2 or not trained["best"]:
+            failures.append(f"trainer path: after training {trained}")
+        if resumed["epochs"] != 3 or not any("epoch no 3" in line for line in continued):
+            failures.append(f"trainer path: the resume did not continue from epoch 3: {resumed}")
+        if not all(reload_equal.values()):
+            failures.append(f"trainer path: the reloaded checkpoint differs: {reload_equal}")
+        if not complete:
+            failures.append("trainer path: the challenge JSON lacks clips or finite scores")
+        for name in TRAINER_KERNELS + ("max_pool_backward",):
+            if launches[name] < 1:
+                failures.append(f"kernel {name} was not launched on the trainer path")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     global _LOG
     parser = argparse.ArgumentParser(description=__doc__,
@@ -1654,11 +1882,14 @@ def main(argv=None) -> int:
     # the kernels line: event timing of back-to-back calls, as for every
     # kernel there (the device times, from a CUDA graph, are in the line above)
     main_case["max_pool"] = pool_case
-    launches = {"pe_block": serve_launches["pe_block"], "mha": serve_launches["mha"],
-                "max_pool": train_launches["max_pool"],
-                "fused_stem": test_launches["fused_stem"],
-                "consensus_heads": test_launches["consensus_heads"],
-                "conv3x3": probe_launches["conv3x3"]}
+
+    # the training entry point: main in train mode, resume, reload, test mode
+    trainer_launches = trainer_path(card, failures)
+    emit({"phase": "launches", "path": "trainer", **trainer_launches})
+    # launches: this slice's main path, the training entry point, for the
+    # kernels it runs; conv3x3 runs on the probe's path only
+    launches = {name: trainer_launches[name] for name in TRAINER_KERNELS}
+    launches["conv3x3"] = probe_launches["conv3x3"]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": main_case[name]["max_abs_err"],

@@ -71,7 +71,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     for module in ("tools.serve", "tools.train", "tools.test", "main", "ops.kernels",
                    "ops.pooling", "models.losses", "parallel.optim", "parallel.train_step",
                    "utils.metrics", "utils.checkpoint", "utils.logging", "data.loader",
-                   "data.dataset", "data.classes"):
+                   "data.dataset", "data.classes", "models.builder", "models.convert",
+                   "models.bridge"):
         assert f"{PACKAGE}.{module}" in result["imported"]
     assert [m for m in result["loaded"] if forbidden(m)] == []
 
