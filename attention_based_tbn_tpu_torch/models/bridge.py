@@ -14,6 +14,9 @@ the JAX package's ``models/convert_back.export_tbn_state_dict`` emits:
   converted pretrained ``.npz`` tower holds them (models/convert.py).
 * :func:`state_dict_to_jax` — the inverse, so that weights drawn by the
   port can be fed to the JAX package (the tests do).
+* :func:`kernel_keys` — the state-dict keys whose tensors are images of
+  JAX ``kernel`` leaves (conv and dense weights: what the serving export
+  quantizes or casts).
 * :func:`conv3x3_weight_from_jax` / :func:`conv3x3_weight_to_jax` — one
   3x3 conv kernel, HWIO (3, 3, C_in, C_out) <-> torch's (C_out, C_in, 3,
   3), for the fused-block probe's convolution (``ops/kernels.conv3x3``).
@@ -194,6 +197,29 @@ def state_dict_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
                  value.T if leaf == "weight" else value)
         # pe.0.pe, prototype_wts and num_batches_tracked are regenerated
     return {"params": params, "batch_stats": stats}
+
+
+def kernel_keys(state_dict: Mapping[str, Any]) -> set:
+    """The keys of ``state_dict`` that :func:`state_dict_to_jax` places
+    under a ``kernel`` leaf: every conv and dense weight, the MHA's packed
+    in-projection (the q, k and v kernels) and its out-projection; not the
+    BatchNorm and GroupNorm affines, biases, statistics or buffers. Found
+    by running the bridge on each key's index broadcast to its shape, so
+    the rule is the bridge's own."""
+    keys = list(state_dict)
+    tagged = {k: np.broadcast_to(np.float64(i), tuple(state_dict[k].shape))
+              for i, k in enumerate(keys)}
+    found = set()
+
+    def walk(node):
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value)
+            elif name == "kernel":
+                found.add(keys[int(np.asarray(value).flat[0])])
+
+    walk(state_dict_to_jax(tagged)["params"])
+    return found
 
 
 def conv3x3_weight_from_jax(kernel_hwio) -> np.ndarray:

@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.device import tracing
+
 BN_EPSILON = 1e-5
 BN_MOMENTUM = 0.1
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -38,13 +40,15 @@ def compute_dtype(name: str) -> torch.dtype:
     return COMPUTE_DTYPES[name]
 
 
-@torch.no_grad()
 def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
                  bias_dtype: torch.dtype = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """BN(conv(x, W) + b) on running statistics == conv(x, W*s) + (b*s + o)
     with s = gamma / sqrt(var + eps), o = beta - mean*s; folded in float32,
     the kernel returned in ``dtype``, the bias in ``bias_dtype`` (default
-    ``dtype``)."""
+    ``dtype``). The caller turns autograd off: toggling it here would put a
+    grad-mode region per convolution into an exported graph, which
+    ``torch.export`` then inlines one by one (minutes at this model's 70
+    convolutions a tower)."""
     s = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     w = conv.weight * s[:, None, None, None]
     b = conv.bias * s + (bn.bias - bn.running_mean * s)
@@ -55,19 +59,25 @@ class FoldCache:
     """Folded (kernel, bias) per convolution, refolded whenever a source
     tensor changed: an in-place update (``load_state_dict``) bumps the
     tensor's version, a ``.to(device)`` swaps its storage. Saves the ~10
-    small launches per convolution that folding costs on every forward."""
+    small launches per convolution that folding costs on every forward.
+    While the forward is traced (``utils.device.tracing``: an export) the
+    fold is computed inline and kept nowhere, so it becomes part of the
+    traced program."""
 
     def __init__(self):
         self._entries: Dict[str, tuple] = {}
 
     def get(self, name: str, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
             bias_dtype: torch.dtype = None):
+        if tracing():
+            return fold_conv_bn(conv, bn, dtype, bias_dtype)
         sources = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
                    bn.running_var)
         key = (dtype, bias_dtype) + tuple((t.data_ptr(), t._version) for t in sources)
         hit = self._entries.get(name)
         if hit is None or hit[0] != key:
-            hit = (key,) + fold_conv_bn(conv, bn, dtype, bias_dtype)
+            with torch.no_grad():
+                hit = (key,) + fold_conv_bn(conv, bn, dtype, bias_dtype)
             self._entries[name] = hit
         return hit[1], hit[2]
 
@@ -80,7 +90,8 @@ class CastCache:
     forward launches no cast. While autograd records through a parameter
     (training), the casts are taken fresh: ``.to`` is differentiable, so the
     gradients reach the float32 parameters. At float32 the tensors pass
-    through unchanged."""
+    through unchanged. While the forward is traced (an export) the casts
+    are computed inline and kept nowhere."""
 
     def __init__(self):
         self._entries: Dict[str, tuple] = {}
@@ -88,7 +99,7 @@ class CastCache:
     def get(self, name: str, tensors: Tuple[torch.Tensor, ...], dtype: torch.dtype):
         if all(t.dtype == dtype for t in tensors):
             return tuple(tensors)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if tracing() or torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             return tuple(t.to(dtype) for t in tensors)
         key = (dtype,) + tuple((t.data_ptr(), t._version) for t in tensors)
         hit = self._entries.get(name)
@@ -102,7 +113,9 @@ class CastCache:
         """``fn`` of the ``tensors`` rounded to ``dtype`` (a kernel's packed
         operands), computed without autograd once per version of the
         sources and cached under ``name``, so a cached forward launches no
-        copy."""
+        copy; computed inline while traced."""
+        if tracing():
+            return fn(*(t.to(dtype) for t in tensors))
         key = (dtype,) + tuple((t.data_ptr(), t._version) for t in tensors)
         hit = self._entries.get(name)
         if hit is None or hit[0] != key:

@@ -25,10 +25,18 @@
   (:func:`conv3x3_route`).
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain version
-(``*_plain``); a CUDA tensor launches the kernel, or raises when the kernel
-cannot take it. Nothing falls back silently. Each wrapper counts its
-launches in ``<wrapper>.launches`` (one per call that reached the card), so
-a run can show that it went through the kernels.
+(``*_plain``); a CUDA tensor goes to the kernel's ``torch.library`` op
+(``tbn::<name>``), which launches the kernel or raises when the kernel
+cannot take it. Nothing falls back silently. The op is opaque to
+``torch.export``: an exported program holds it as one node, and its real
+implementation (the launch) runs when the program runs, so the eager model
+and an exported one go through the same code. Everything that needs real
+data (pointers, their alignment, the operand caches) and the launch
+counters live in the real implementations; each op's fake implementation
+checks what the shapes alone decide and gives the outputs' shapes. Each
+wrapper counts its launches in ``<wrapper>.launches`` (one per launch that
+reached the card; a trace counts none), so a run can show that it went
+through the kernels.
 
 Activations are fp32 or bf16, and so are the parameters of ``pe_block``,
 ``mha`` and ``consensus_heads``: in the activations' type, in torch layout
@@ -44,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -214,11 +223,9 @@ def pe_block_shape_error(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
     return _pe_block_limits_error(x, c_out, gn_scale, gn_bias, num_groups)
 
 
-def pe_block_bf16_shape_error(x, split, gn_scale, gn_bias, num_groups: int) -> str:
-    """Why :func:`pe_block_bf16`'s kernel cannot take these arguments (""
-    when it can), checked without a card: bf16 activations, the limits of
-    ``PE_BLOCK_LIMITS``, and :func:`pe_block_split`'s operands, contiguous
-    and 16-byte aligned."""
+def _pe_block_bf16_operands_error(x, split, gn_scale, gn_bias, num_groups: int) -> str:
+    """:func:`pe_block_bf16_shape_error` without the alignment, which needs
+    real data (the op's fake implementation checks this much)."""
     if x.dtype != _BF16:
         return f"the wgmma route takes bf16 activations, got {x.dtype}: call pe_block"
     w_x, pe_bias = split
@@ -232,19 +239,37 @@ def pe_block_bf16_shape_error(x, split, gn_scale, gn_bias, num_groups: int) -> s
     if tuple(pe_bias.shape) != (s, c_out) or pe_bias.dtype != torch.float32 or (
             not pe_bias.is_contiguous()):
         return f"split PE bias must be contiguous ({s}, {c_out}) float32"
-    if x.data_ptr() % 16 or w_x.data_ptr() % 16:
-        return "x and the split weight must start on 16 bytes"
     return ""
+
+
+def pe_block_bf16_shape_error(x, split, gn_scale, gn_bias, num_groups: int) -> str:
+    """Why :func:`pe_block_bf16`'s kernel cannot take these arguments (""
+    when it can), checked without a card: bf16 activations, the limits of
+    ``PE_BLOCK_LIMITS``, and :func:`pe_block_split`'s operands, contiguous
+    and 16-byte aligned."""
+    problem = _pe_block_bf16_operands_error(x, split, gn_scale, gn_bias, num_groups)
+    if not problem and (x.data_ptr() % 16 or split[0].data_ptr() % 16):
+        return "x and the split weight must start on 16 bytes"
+    return problem
 
 
 def pe_block(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
              num_groups: int = 64, eps: float = 1e-5):
-    """:func:`pe_block_plain` on the CPU; on the card the fp32-core kernel,
-    float32 only (the bf16 kernel is :func:`pe_block_bf16`)."""
+    """:func:`pe_block_plain` on the CPU; on the card the fp32-core kernel
+    (op ``tbn::pe_block``), float32 only (the bf16 kernel is
+    :func:`pe_block_bf16`)."""
     if x.device.type == "cpu":
         return pe_block_plain(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
                               num_groups, eps)
     _require_cuda(x)
+    return _pe_block_op(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias, num_groups,
+                        eps)
+
+
+@torch.library.custom_op("tbn::pe_block", mutates_args=(), device_types="cuda")
+def _pe_block_op(x: torch.Tensor, pe_table: torch.Tensor, conv_weight: torch.Tensor,
+                 conv_bias: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                 num_groups: int, eps: float) -> torch.Tensor:
     problem = pe_block_shape_error(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
                                    num_groups)
     if problem:
@@ -269,23 +294,37 @@ def pe_block(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
     return out
 
 
+@_pe_block_op.register_fake
+def _(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias, num_groups, eps):
+    _raise_if("pe_block", pe_block_shape_error(x, pe_table, conv_weight, conv_bias, gn_scale,
+                                               gn_bias, num_groups))
+    return torch.empty_like(x)
+
+
 pe_block.launches = 0  # launches of either route (pe_block and pe_block_bf16)
 
 
 def pe_block_bf16(x, split, gn_scale, gn_bias, num_groups: int = 64, eps: float = 1e-5):
     """:func:`pe_block_split_plain` on the CPU; on the card the wgmma
-    kernel. ``split`` is :func:`pe_block_split` of the table, conv weight
-    and bias rounded to bf16; ``gn_scale`` and ``gn_bias`` are bf16. Its
-    launches count in ``pe_block.launches``."""
+    kernel (op ``tbn::pe_block_bf16``). ``split`` is :func:`pe_block_split`
+    of the table, conv weight and bias rounded to bf16; ``gn_scale`` and
+    ``gn_bias`` are bf16. Its launches count in ``pe_block.launches``."""
     if x.device.type == "cpu":
         return pe_block_split_plain(x, split, gn_scale, gn_bias, num_groups, eps)
     _require_cuda(x)
-    problem = pe_block_bf16_shape_error(x, split, gn_scale, gn_bias, num_groups)
+    w_x, pe_bias = split
+    return _pe_block_bf16_op(x, w_x, pe_bias, gn_scale, gn_bias, num_groups, eps)
+
+
+@torch.library.custom_op("tbn::pe_block_bf16", mutates_args=(), device_types="cuda")
+def _pe_block_bf16_op(x: torch.Tensor, w_x: torch.Tensor, pe_bias: torch.Tensor,
+                      gn_scale: torch.Tensor, gn_bias: torch.Tensor, num_groups: int,
+                      eps: float) -> torch.Tensor:
+    problem = pe_block_bf16_shape_error(x, (w_x, pe_bias), gn_scale, gn_bias, num_groups)
     if problem:
         raise ValueError(f"pe_block_bf16: {problem}")
     for name, t in (("gn_scale", gn_scale), ("gn_bias", gn_bias)):
         _check_param("pe_block_bf16", name, t, x.device, _BF16)
-    w_x, pe_bias = split
     if w_x.device != x.device or pe_bias.device != x.device:
         raise ValueError(f"pe_block_bf16: split operands must be on {x.device}")
     b, s, c_in = x.shape
@@ -297,6 +336,13 @@ def pe_block_bf16(x, split, gn_scale, gn_bias, num_groups: int = 64, eps: float 
     _raise_on_error("pe_block_bf16", lib.pe_block_error_string, err)
     pe_block.launches += 1
     return out
+
+
+@_pe_block_bf16_op.register_fake
+def _(x, w_x, pe_bias, gn_scale, gn_bias, num_groups, eps):
+    _raise_if("pe_block_bf16", _pe_block_bf16_operands_error(x, (w_x, pe_bias), gn_scale,
+                                                             gn_bias, num_groups))
+    return torch.empty_like(x)
 
 
 def pe_block_grid(b: int, s: int, c_out: int, device=0):
@@ -353,28 +399,38 @@ def mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
 
 def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_bias,
         num_heads: int):
-    """:func:`mha_plain` on the CPU; the CUDA kernels on the card."""
+    """:func:`mha_plain` on the CPU; the CUDA kernels on the card (op
+    ``tbn::mha``)."""
     if query.device.type == "cpu":
         return mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
                          out_proj_bias, num_heads)
     _require_cuda(query)
-    lib = _library("mha")
+    return _mha_op(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
+                   out_proj_bias, num_heads)
+
+
+def _mha_shape_error(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
+                     out_proj_bias, num_heads: int, max_heads: int, max_seq: int,
+                     bf16_tile: int) -> str:
+    """Why the kernel cannot take these arguments ("" when it can), against
+    the library's limits."""
     if keyval.dim() != 3 or query.dim() != 2:
-        raise ValueError(
-            f"mha: query (B, E) and keyval (B, S, E) expected, got "
-            f"{tuple(query.shape)} and {tuple(keyval.shape)}"
-        )
+        return (f"query (B, E) and keyval (B, S, E) expected, got {tuple(query.shape)} and "
+                f"{tuple(keyval.shape)}")
     b, s, e = keyval.shape
     if tuple(query.shape) != (b, e):
-        raise ValueError(f"mha: query {tuple(query.shape)} != ({b}, {e})")
-    if not 1 <= num_heads <= lib.mha_max_heads() or e % num_heads:
-        raise ValueError(f"mha: {num_heads} heads do not divide E={e} (max {lib.mha_max_heads()})")
-    if not 1 <= s <= lib.mha_max_seq():
-        raise ValueError(f"mha: sequence {s} outside [1, {lib.mha_max_seq()}]")
-    _check_activation("mha", query)
-    _check_activation("mha", keyval)
+        return f"query {tuple(query.shape)} != ({b}, {e})"
+    if not 1 <= num_heads <= max_heads or e % num_heads:
+        return f"{num_heads} heads do not divide E={e} (max {max_heads})"
+    if not 1 <= s <= max_seq:
+        return f"sequence {s} outside [1, {max_seq}]"
+    for t in (query, keyval):
+        if t.dtype not in _DTYPE_CODES:
+            return f"dtype {t.dtype} not in {list(_DTYPE_CODES)}"
+        if not t.is_contiguous():
+            return "activations must be contiguous"
     if keyval.dtype != query.dtype or keyval.device != query.device:
-        raise ValueError("mha: query and keyval must share dtype and device")
+        return "query and keyval must share dtype and device"
     shapes = {
         "in_proj_weight": (in_proj_weight, (3 * e, e)),
         "in_proj_bias": (in_proj_bias, (3 * e,)),
@@ -382,12 +438,32 @@ def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_b
         "out_proj_bias": (out_proj_bias, (e,)),
     }
     for name, (t, shape) in shapes.items():
-        _check_param("mha", name, t, query.device, query.dtype)
+        if t.device != query.device or t.dtype != query.dtype or not t.is_contiguous():
+            return f"{name} must be contiguous {query.dtype} on {query.device}"
         if tuple(t.shape) != shape:
-            raise ValueError(f"mha: {name} {tuple(t.shape)} != {shape}")
-    if query.dtype == _BF16 and e % lib.mha_bf16_tile():
-        raise ValueError(f"mha: the bf16 route needs E % {lib.mha_bf16_tile()} == 0, got {e}")
+            return f"{name} {tuple(t.shape)} != {shape}"
+    if query.dtype == _BF16 and e % bf16_tile:
+        return f"the bf16 route needs E % {bf16_tile} == 0, got {e}"
+    return ""
 
+
+# The library's limits (mha_max_heads, mha_max_seq, mha_bf16_tile), for the
+# op's fake implementation, which runs without the library; the smoke holds
+# them against the built library (env phase).
+MHA_LIMITS = (16, 64, 64)
+
+
+@torch.library.custom_op("tbn::mha", mutates_args=(), device_types="cuda")
+def _mha_op(query: torch.Tensor, keyval: torch.Tensor, in_proj_weight: torch.Tensor,
+            in_proj_bias: torch.Tensor, out_proj_weight: torch.Tensor,
+            out_proj_bias: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    lib = _library("mha")
+    problem = _mha_shape_error(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
+                               out_proj_bias, num_heads, lib.mha_max_heads(),
+                               lib.mha_max_seq(), lib.mha_bf16_tile())
+    if problem:
+        raise ValueError(f"mha: {problem}")
+    b, s, e = keyval.shape
     f32 = dict(device=query.device, dtype=torch.float32)
     q_buf = torch.empty((b, e), **f32)
     kv_buf = torch.empty((b * s, 2 * e), **f32)
@@ -405,6 +481,14 @@ def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_b
     _raise_on_error("mha", lib.mha_error_string, err)
     mha.launches += 1
     return out, wts
+
+
+@_mha_op.register_fake
+def _(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_bias, num_heads):
+    _raise_if("mha", _mha_shape_error(query, keyval, in_proj_weight, in_proj_bias,
+                                      out_proj_weight, out_proj_bias, num_heads, *MHA_LIMITS))
+    return (torch.empty_like(query),
+            query.new_empty((keyval.shape[0], keyval.shape[1])))
 
 
 mha.launches = 0
@@ -504,18 +588,34 @@ def ceil_max_pool2d_backward_plain(grad, taps, input_shape, channels_last: bool)
 
 
 def _launch_max_pool(x, with_taps: bool):
-    """One launch of csrc/max_pool.cu's forward: (out, taps or None), in
-    x's memory format."""
-    channels_last = pool_layout(x)
+    """One launch of csrc/max_pool.cu's forward (op ``tbn::max_pool``):
+    (out, taps or None), in x's memory format."""
+    out, taps = _max_pool_op(x, with_taps)
+    return out, (taps if with_taps else None)
+
+
+def _pool_outputs(x, with_taps: bool, channels_last: bool):
+    """The forward's (out, taps) buffers in x's memory format; without taps
+    an empty uint8 tensor stands in for them (an op returns tensors)."""
     n, c, h, w = x.shape
     oh, ow = ceil_out_size(h), ceil_out_size(w)
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     out = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype, memory_format=fmt)
-    taps = (torch.empty((n, c, oh, ow), device=x.device, dtype=torch.uint8, memory_format=fmt)
-            if with_taps else None)
+    if not with_taps:
+        return out, torch.empty((0,), device=x.device, dtype=torch.uint8)
+    return out, torch.empty((n, c, oh, ow), device=x.device, dtype=torch.uint8,
+                            memory_format=fmt)
+
+
+@torch.library.custom_op("tbn::max_pool", mutates_args=(), device_types="cuda")
+def _max_pool_op(x: torch.Tensor, with_taps: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    channels_last = pool_layout(x)
+    out, taps = _pool_outputs(x, with_taps, channels_last)
     if out.numel() == 0:
         return out, taps
     _check_pool_size(x)
+    n, c, h, w = x.shape
+    oh, ow = out.shape[2:]
     lib = _library("max_pool")
     err = lib.max_pool_forward(
         _DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x), _ptr(out),
@@ -526,13 +626,26 @@ def _launch_max_pool(x, with_taps: bool):
     return out, taps
 
 
+@_max_pool_op.register_fake
+def _(x, with_taps):
+    return _pool_outputs(x, with_taps, pool_layout(x))
+
+
 def _launch_max_pool_backward(grad, taps, input_shape, channels_last: bool):
-    """One launch of csrc/max_pool.cu's backward: dx in the forward input's
-    memory format, which the taps have. ``grad`` is taken in that format
-    (autograd may hand it in another; it is then made so, as torch's own
-    backward does)."""
+    """One launch of csrc/max_pool.cu's backward (op
+    ``tbn::max_pool_backward``): dx in the forward input's memory format,
+    which the taps have. ``grad`` is taken in that format (autograd may
+    hand it in another; it is then made so, as torch's own backward
+    does)."""
     fmt = torch.channels_last if channels_last else torch.contiguous_format
-    grad = grad.contiguous(memory_format=fmt)
+    return _max_pool_backward_op(grad.contiguous(memory_format=fmt), taps, list(input_shape),
+                                 channels_last)
+
+
+@torch.library.custom_op("tbn::max_pool_backward", mutates_args=(), device_types="cuda")
+def _max_pool_backward_op(grad: torch.Tensor, taps: torch.Tensor, input_shape: List[int],
+                          channels_last: bool) -> torch.Tensor:
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
     n, c, h, w = input_shape
     oh, ow = taps.shape[2:]
     dx = torch.empty((n, c, h, w), device=grad.device, dtype=grad.dtype, memory_format=fmt)
@@ -547,6 +660,12 @@ def _launch_max_pool_backward(grad, taps, input_shape, channels_last: bool):
     _raise_on_error("max_pool backward", lib.max_pool_error_string, err)
     ceil_max_pool2d.backward_launches += 1
     return dx
+
+
+@_max_pool_backward_op.register_fake
+def _(grad, taps, input_shape, channels_last):
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    return torch.empty(input_shape, device=grad.device, dtype=grad.dtype, memory_format=fmt)
 
 
 class CeilMaxPool2d(torch.autograd.Function):
@@ -638,36 +757,58 @@ def fused_stem_shape_error(x) -> str:
 
 
 def fused_stem(x, weight, bias, input_scale, input_offset, dtype):
-    """:func:`fused_stem_plain` on the CPU; the CUDA kernel on the card,
-    which reads NHWC ``x`` as it lies and returns a channels-last tensor."""
+    """:func:`fused_stem_plain` on the CPU; the CUDA kernel on the card (op
+    ``tbn::fused_stem``), which reads NHWC ``x`` as it lies and returns a
+    channels-last tensor."""
     if x.device.type == "cpu":
         return fused_stem_plain(x, weight, bias, input_scale, input_offset, dtype)
     _require_cuda(x)
+    return _fused_stem_op(x, weight, bias, input_scale, input_offset, dtype)
+
+
+def _fused_stem_args_error(x, weight, bias, input_scale, input_offset, dtype) -> str:
+    """Why the kernel cannot take these arguments ("" when it can): the
+    shape gate, the compute type, the weight, bias and input affine."""
     problem = fused_stem_shape_error(x)
     if problem:
-        raise ValueError(f"fused_stem: {problem}")
+        return problem
     if dtype not in _DTYPE_CODES:
-        raise ValueError(f"fused_stem: compute dtype {dtype} not in {list(_DTYPE_CODES)}")
+        return f"compute dtype {dtype} not in {list(_DTYPE_CODES)}"
     if not x.is_contiguous():
-        raise ValueError("fused_stem: x must be contiguous NHWC memory")
+        return "x must be contiguous NHWC memory"
     b, h, w, c = x.shape
     if b > _MAX_GRID_Y:
-        raise ValueError(f"fused_stem: batch {b} > {_MAX_GRID_Y}")
+        return f"batch {b} > {_MAX_GRID_Y}"
     if tuple(weight.shape) != (STEM_CHANNELS, c, 7, 7):
-        raise ValueError(
-            f"fused_stem: weight {tuple(weight.shape)} != ({STEM_CHANNELS}, {c}, 7, 7)")
+        return f"weight {tuple(weight.shape)} != ({STEM_CHANNELS}, {c}, 7, 7)"
     if weight.dtype != dtype or weight.device != x.device or not weight.is_contiguous():
-        raise ValueError(f"fused_stem: weight must be contiguous {dtype} on {x.device}")
+        return f"weight must be contiguous {dtype} on {x.device}"
     for name, t, n in (("bias", bias, STEM_CHANNELS), ("input_scale", input_scale, c),
                        ("input_offset", input_offset, c)):
-        _check_param("fused_stem", name, t, x.device, torch.float32)
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            return f"{name} must be contiguous float32 on {x.device}"
         if tuple(t.shape) != (n,):
-            raise ValueError(f"fused_stem: {name} {tuple(t.shape)} != ({n},)")
+            return f"{name} {tuple(t.shape)} != ({n},)"
+    return ""
+
+
+def _stem_output(x, dtype):
+    b, h, w, _ = x.shape
+    return torch.empty((b, STEM_CHANNELS, h // 4, w // 4), device=x.device, dtype=dtype,
+                       memory_format=torch.channels_last)
+
+
+@torch.library.custom_op("tbn::fused_stem", mutates_args=(), device_types="cuda")
+def _fused_stem_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   input_scale: torch.Tensor, input_offset: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    _raise_if("fused_stem", _fused_stem_args_error(x, weight, bias, input_scale, input_offset,
+                                                   dtype))
     if dtype == _BF16:
         weight = pack_stem_weight(weight)  # the wgmma route's K-major B operand
+    b, h, w, c = x.shape
     lib = _library("fused_stem")
-    out = torch.empty((b, STEM_CHANNELS, h // 4, w // 4), device=x.device, dtype=dtype,
-                      memory_format=torch.channels_last)
+    out = _stem_output(x, dtype)
     err = lib.fused_stem_forward(
         _STEM_INPUT_CODES[x.dtype], _DTYPE_CODES[dtype], x.device.index or 0, _ptr(x),
         _ptr(weight), _ptr(bias), _ptr(input_scale), _ptr(input_offset), _ptr(out),
@@ -676,6 +817,13 @@ def fused_stem(x, weight, bias, input_scale, input_offset, dtype):
     _raise_on_error("fused_stem", lib.fused_stem_error_string, err)
     fused_stem.launches += 1
     return out
+
+
+@_fused_stem_op.register_fake
+def _(x, weight, bias, input_scale, input_offset, dtype):
+    _raise_if("fused_stem", _fused_stem_args_error(x, weight, bias, input_scale, input_offset,
+                                                   dtype))
+    return _stem_output(x, dtype)
 
 
 fused_stem.launches = 0
@@ -780,24 +928,48 @@ def consensus_heads_operands(weights, biases) -> ConsensusOperands:
 
 def consensus_heads(features, weights, biases):
     """:func:`consensus_heads_plain` on the CPU; one launch of the CUDA
-    kernel for every head on the card, its operands from
-    :func:`consensus_heads_operands`. Each head's logits are a contiguous
-    (B, C_h) view of one float32 buffer."""
+    kernel for every head on the card (op ``tbn::consensus_heads``), its
+    operands from :func:`consensus_heads_operands`. Each head's logits are a
+    contiguous (B, C_h) view of the op's one float32 buffer (an op's outputs
+    may not alias each other, so the op returns the buffer and the split is
+    here)."""
     if features.device.type == "cpu":
         return consensus_heads_plain(features, weights, biases)
     _require_cuda(features)
+    out = _consensus_heads_op(features, list(weights), list(biases))
+    b, start, logits = features.shape[0], 0, []
+    for w in weights:
+        c = w.shape[0]
+        logits.append(out[b * start:b * (start + c)].view(b, c))
+        start += c
+    return logits
+
+
+def _consensus_features_error(features, features_count: int, dtype, device) -> str:
+    if features.device != device:
+        return (f"features on {features.device}, heads on {device}: the kernel needs both on "
+                "one card")
+    if features.dim() != 3 or features.dtype != dtype or not features.is_contiguous():
+        return (f"features must be contiguous (B, N, F) {dtype}, got "
+                f"{tuple(features.shape)} {features.dtype}")
+    b, n, f = features.shape
+    if f != features_count or n < 1 or not 1 <= b <= _MAX_GRID_Y:
+        return (f"(B, N, F) {tuple(features.shape)} outside the kernel's range "
+                f"(F = {features_count}, N >= 1, B <= {_MAX_GRID_Y})")
+    return ""
+
+
+@torch.library.custom_op("tbn::consensus_heads", mutates_args=(), device_types="cuda")
+def _consensus_heads_op(features: torch.Tensor, weights: List[torch.Tensor],
+                        biases: List[torch.Tensor]) -> torch.Tensor:
     ops = consensus_heads_operands(weights, biases)
     # the cheapest checks that hold (a CUDA tensor's get_device is its index)
     if features.get_device() != ops.device_index:
         raise ValueError(f"consensus_heads: features on {features.device}, heads on "
                          f"{ops.device}: the kernel needs both on one card")
-    if features.dim() != 3 or features.dtype != ops.dtype or not features.is_contiguous():
-        raise ValueError(f"consensus_heads: features must be contiguous (B, N, F) {ops.dtype}, "
-                         f"got {tuple(features.shape)} {features.dtype}")
+    _raise_if("consensus_heads",
+              _consensus_features_error(features, ops.features, ops.dtype, features.device))
     b, n, f = features.shape
-    if f != ops.features or n < 1 or not 1 <= b <= _MAX_GRID_Y:
-        raise ValueError(f"consensus_heads: (B, N, F) {tuple(features.shape)} outside the "
-                         f"kernel's range (F = {ops.features}, N >= 1, B <= {_MAX_GRID_Y})")
     lib = _library("consensus_heads")
     out = features.new_empty(b * ops.total, dtype=torch.float32)
     err = lib.consensus_heads_forward(
@@ -807,7 +979,16 @@ def consensus_heads(features, weights, biases):
     )
     _raise_on_error("consensus_heads", lib.consensus_heads_error_string, err)
     consensus_heads.launches += 1
-    return [out.as_strided((b, c), (c, 1), b * start) for c, start in ops.heads]
+    return out
+
+
+@_consensus_heads_op.register_fake
+def _(features, weights, biases):
+    _raise_if("consensus_heads", consensus_heads_params_error(weights, biases))
+    _raise_if("consensus_heads", _consensus_features_error(
+        features, weights[0].shape[1], weights[0].dtype, weights[0].device))
+    total = sum(w.shape[0] for w in weights)
+    return features.new_empty(features.shape[0] * total, dtype=torch.float32)
 
 
 consensus_heads.launches = 0
@@ -878,10 +1059,11 @@ def pack_conv3x3_weight(weight):
 
 def conv3x3_shape_error(x, weight, bias) -> str:
     """Why :func:`conv3x3`'s kernel cannot take these arguments ("" when
-    it can), checked without a card: NHWC x of fp32 or bf16, contiguous and
-    16-byte aligned, the torch-layout weight in x's type, a (C_out,) float
-    bias, the route's ``CONV3X3_LIMITS``, fewer than 2^31 elements in x
-    and in the output."""
+    it can), checked without a card and without real data: NHWC x of fp32
+    or bf16, contiguous, the torch-layout weight in x's type, a (C_out,)
+    float bias, the route's ``CONV3X3_LIMITS``, fewer than 2^31 elements in
+    x and in the output. (The op's real implementation also wants x on 16
+    bytes.)"""
     if x.dim() != 4:
         return f"x must be (B, H, W, C_in) NHWC, got {tuple(x.shape)}"
     if x.dtype not in CONV3X3_LIMITS:
@@ -904,8 +1086,6 @@ def conv3x3_shape_error(x, weight, bias) -> str:
         return "x must be contiguous NHWC memory"
     if x.numel() >= 2**31 or b * h * w * c_out >= 2**31:
         return f"x {tuple(x.shape)} or its output has 2^31 elements or more"
-    if x.data_ptr() % 16:
-        return "x must start on 16 bytes"
     return ""
 
 
@@ -932,27 +1112,43 @@ def conv3x3_operands(weight, bias):
 
 
 def conv3x3(x, weight, bias):
-    """:func:`conv3x3_plain` on the CPU; the CUDA kernel on the card. Takes
-    NHWC ``x`` as it lies and returns a contiguous (B, H, W, C_out) NHWC
-    tensor in x's type."""
+    """:func:`conv3x3_plain` on the CPU; the CUDA kernel on the card (op
+    ``tbn::conv3x3``). Takes NHWC ``x`` as it lies and returns a contiguous
+    (B, H, W, C_out) NHWC tensor in x's type."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias)
     _require_cuda(x)
+    return _conv3x3_op(x, weight, bias)
+
+
+def _conv3x3_args_error(x, weight, bias) -> str:
     problem = conv3x3_shape_error(x, weight, bias)
-    if problem:
-        raise ValueError(f"conv3x3: {problem}")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError(f"conv3x3: weight and bias must be on {x.device}")
+    if not problem and (weight.device != x.device or bias.device != x.device):
+        return f"weight and bias must be on {x.device}"
+    return problem
+
+
+@torch.library.custom_op("tbn::conv3x3", mutates_args=(), device_types="cuda")
+def _conv3x3_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    _raise_if("conv3x3", _conv3x3_args_error(x, weight, bias))
+    if x.data_ptr() % 16:
+        raise ValueError("conv3x3: x must start on 16 bytes")
     w_op, bias32 = conv3x3_operands(weight, bias)
     b, h, w, c_in = x.shape
     c_out = weight.shape[0]
-    out = torch.empty((b, h, w, c_out), device=x.device, dtype=x.dtype)
+    out = x.new_empty((b, h, w, c_out))
     lib = _library("conv3x3")
     err = lib.conv3x3_forward(_DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x), _ptr(w_op),
                               _ptr(bias32), _ptr(out), b, h, w, c_in, c_out, _stream(x))
     _raise_on_error("conv3x3", lib.conv3x3_error_string, err)
     conv3x3.launches += 1
     return out
+
+
+@_conv3x3_op.register_fake
+def _(x, weight, bias):
+    _raise_if("conv3x3", _conv3x3_args_error(x, weight, bias))
+    return x.new_empty((*x.shape[:3], weight.shape[0]))
 
 
 conv3x3.launches = 0
@@ -1019,16 +1215,14 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _raise_if(fn: str, problem: str) -> None:
+    if problem:
+        raise ValueError(f"{fn}: {problem}")
+
+
 def _require_cuda(t: torch.Tensor) -> None:
     if not t.is_cuda:
         raise ValueError(f"no kernel for device {t.device}; use a CPU or CUDA tensor")
-
-
-def _check_activation(fn: str, t: torch.Tensor) -> None:
-    if t.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{fn}: dtype {t.dtype} not in {list(_DTYPE_CODES)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{fn}: activations must be contiguous")
 
 
 def _check_param(fn: str, name: str, t: torch.Tensor, device: torch.device,

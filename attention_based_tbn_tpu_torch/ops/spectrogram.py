@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import tracing
+
 
 def periodic_hann(win_length: int) -> np.ndarray:
     n = np.arange(win_length, dtype=np.float64)
@@ -53,15 +55,25 @@ def dft_basis(n_fft: int, win_length: int):
     return cos_basis, sin_basis
 
 
-@functools.lru_cache(maxsize=8)
 def _wide_basis(n_fft: int, win_length: int, hop: int, device: str, dtype: torch.dtype):
     """[cos | sin] basis zero-padded to ceil(n_fft/hop)*hop rows, rounded to
-    ``dtype`` and held on ``device`` as float32."""
+    ``dtype`` and held on ``device`` as float32: kept once per key, except
+    while the forward is traced (an export), when it is made anew and kept
+    nowhere (a traced tensor must not outlive its trace)."""
+    if tracing():
+        return _make_wide_basis(n_fft, win_length, hop, device, dtype)
+    return _cached_wide_basis(n_fft, win_length, hop, device, dtype)
+
+
+def _make_wide_basis(n_fft: int, win_length: int, hop: int, device: str, dtype: torch.dtype):
     cos_b, sin_b = dft_basis(n_fft, win_length)
     n_chunks = -(-n_fft // hop)
     wide = np.zeros((n_chunks * hop, 2 * cos_b.shape[1]), np.float32)
     wide[:n_fft] = np.concatenate([cos_b, sin_b], axis=1)
     return torch.from_numpy(wide).to(device=device, dtype=dtype).float()
+
+
+_cached_wide_basis = functools.lru_cache(maxsize=8)(_make_wide_basis)
 
 
 def _stft_power(signal_2d: torch.Tensor, n_fft: int, win_length: int, hop: int,

@@ -24,6 +24,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def tracing() -> bool:
+    """True while the forward is traced rather than run: under
+    ``torch.export``, or on fake tensors (the export's shape-only pass). A
+    cache must then neither read a tensor's storage nor keep what it
+    computed: a traced tensor outlives its trace as a fake one."""
+    return torch.compiler.is_exporting() or torch._guards.detect_fake_mode() is not None
+
+
 @contextlib.contextmanager
 def tf32_scope(compute_dtype: str):
     """TF32 for float32 matmuls and cuDNN convolutions inside the block,

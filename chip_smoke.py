@@ -17,7 +17,7 @@ type as the models pass them: conv3x3 also at BN-Inception shapes (one on
 its streaming route) and a ragged one, each record naming the route the
 library took (``route``), and a NaN input; consensus_heads with its device
 time by CUDA graph (``graph_ms``) at every shape, plus one-row, one-clip,
-F = 1024 and one-, three- and four-head cases. Then drives five paths,
+F = 1024 and one-, three- and four-head cases. Then drives six paths,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -55,8 +55,19 @@ after:
   again to resume 1 epoch from the ``.pth`` (the log must continue from
   epoch 3, the history hold 3 epochs); the ``.pth`` reloaded into a fresh
   train state, bit-equal to the trained one; ``main`` in test mode from
-  it with the fused stem and fast consensus (the challenge JSON complete).
-  The kernels line's launches are this path's (conv3x3's the probe's).
+  it with the fused stem and fast consensus (the challenge JSON complete);
+* the serving export: the flagship with ``tpu.fused_stem``,
+  ``tpu.fast_consensus`` and ``tpu.pool_impl=pallas`` exported by
+  ``tools/export.export_inference`` as a bf16 bundle (batch 10, a bucket
+  of 1) and an int8 one (batch 10), served by ``tools/serve.BundleModel``:
+  each ``torch.export`` program must hold the five kernels' ``tbn::`` op
+  nodes and launch them; b = 1, 3 and 10 against the eager model on the
+  bundle's own weights within rel-RMSE 1e-3; the int8 ``params.pt`` stored
+  as int8 in under 0.6x the bf16 one's bytes; ten concurrent b=1 requests
+  through a ``BatchingFront`` equal to their lone predicts, one group at
+  least coalesced; export seconds, bytes, latency and device launches per
+  request beside the eager model's. The kernels line's launches are this
+  path's (conv3x3's the probe's).
 
 One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -1748,6 +1759,185 @@ def trainer_path(card: str, failures: list) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The export path: the flagship with five kernels inside its programs.
+EXPORT_OVERRIDES = ["tpu.fused_stem=true", "tpu.fast_consensus=true", "tpu.pool_impl=pallas"]
+EXPORT_OPS = {"pe_block": ("tbn::pe_block", "tbn::pe_block_bf16"), "mha": ("tbn::mha",),
+              "fused_stem": ("tbn::fused_stem",), "consensus_heads": ("tbn::consensus_heads",),
+              "max_pool": ("tbn::max_pool",)}
+# A bundle against the eager model on the same weights, same flags and
+# batch shapes: the same ops in the same order; only cuDNN's choice of
+# algorithm may differ.
+EXPORT_REL_RMSE = 1e-3
+# The int8 bundle's params.pt against the bf16 one's (int8 kernels + fp32
+# scales against bf16 kernels; BatchNorm, biases and buffers fp32 in both).
+INT8_BYTES_RATIO = 0.6
+
+
+def outputs_rel_rmse(got: dict, want: dict) -> dict:
+    return {k: rel_rmse(got[k], want[k]) for k in want}
+
+
+def export_path(card: str, failures: list) -> dict:
+    """The serving export at full width: the flagship (tri-modal, MHA,
+    224^2, 25 segments, bf16) with EXPORT_OVERRIDES, from the serving
+    phase's seeded weights, exported by ``tools/export.export_inference`` as
+    (a) a bf16 bundle at batch 10 with a bucket of 1 and (b) an int8 bundle
+    at batch 10, then served by ``tools/serve.BundleModel``. Gates: each
+    program holds the five kernels' op nodes; the bundles against the eager
+    ``ServingModel`` on the bundle's own weights (bf16 kernels widened to
+    fp32; dequantize(quantize_int8(weights))) within EXPORT_REL_RMSE at b =
+    1, 3 and 10; the int8 params stored as int8 in under INT8_BYTES_RATIO of
+    the bf16 bytes; ten concurrent b=1 requests through a BatchingFront
+    (5 ms window) equal to their lone predicts, at least one group
+    coalesced. Launch counts are set to 0 just before the bundles serve and
+    read after; each of the five must rise. Returns those launches."""
+    from attention_based_tbn_tpu_torch.models.bridge import kernel_keys
+    from attention_based_tbn_tpu_torch.tools.export import (
+        _kernel_ops, dequantize, export_inference, quantize_int8)
+    from attention_based_tbn_tpu_torch.tools.serve import BatchingFront, BundleModel
+
+    root = tempfile.mkdtemp(prefix=".smoke_fixture_export_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        cfg = load_config(overrides=EXPORT_OVERRIDES)
+        modality = get_modality(cfg)
+        weights = build_model(cfg, modality, device="cuda").state_dict()
+        dirs = {"bf16": os.path.join(root, "bf16"), "int8": os.path.join(root, "int8")}
+        export = {}
+        for name, dtype, buckets in (("bf16", "bfloat16", [1]), ("int8", "int8", None)):
+            export_inference(cfg, modality, state=weights, out_dir=dirs[name], batch_size=10,
+                             serving_dtype=dtype, batch_buckets=buckets, device="cuda")
+            manifest = read_json(os.path.join(dirs[name], "manifest.json"))
+            export[name] = {"export_seconds": manifest["export_seconds"],
+                            "kernel_ops": manifest["kernel_ops"],
+                            "bytes": {f: os.path.getsize(os.path.join(dirs[name], f))
+                                      for f in sorted(os.listdir(dirs[name]))}}
+        emit({"phase": "export", "gpu": card, "overrides": EXPORT_OVERRIDES, **export})
+
+        # stored int8: every quantized tensor as int8, the file under the ratio
+        stored = torch.load(os.path.join(dirs["int8"], "params.pt"), weights_only=True)
+        quantized = {k for k, v in stored.items() if isinstance(v, dict)}
+        not_int8 = sorted(k for k in quantized if stored[k]["q"].dtype != torch.int8)
+        ratio = export["int8"]["bytes"]["params.pt"] / export["bf16"]["bytes"]["params.pt"]
+        emit({"phase": "export_int8_params", "quantized": len(quantized),
+              "kernel_keys": len(kernel_keys(weights)), "not_int8": not_int8,
+              "bytes_vs_bf16": ratio, "bound": INT8_BYTES_RATIO})
+        if not_int8 or quantized != kernel_keys(weights):
+            failures.append(f"int8 params: {len(quantized)} quantized tensors, "
+                            f"{len(kernel_keys(weights))} kernels, not int8: {not_int8[:5]}")
+        if not ratio < INT8_BYTES_RATIO:
+            failures.append(f"int8 params.pt is {ratio:.3f}x the bf16 one's bytes, "
+                            f"not under {INT8_BYTES_RATIO}")
+        del stored
+
+        # the eager references, after the exports: the bundles' own weights
+        own = {"bf16": {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in
+                        torch.load(os.path.join(dirs["bf16"], "params.pt"),
+                                   map_location="cuda", weights_only=True).items()},
+               "int8": dequantize(quantize_int8(weights))}
+        # each eager model at its bundle's buckets: a b=1 request runs at
+        # batch 1 or padded to 10 in both (cuDNN's algorithms differ by batch)
+        buckets = {"bf16": (1, 10), "int8": (10,), "original": (1, 10)}
+        eager = {name: ServingModel(cfg, own.get(name, weights), device="cuda",
+                                    batch_buckets=buckets[name])
+                 for name in ("bf16", "int8", "original")}
+        requests = {b: eager["original"].example_batch(b, seed=40 + b) for b in (1, 3, 10)}
+        want = {name: {b: model.predict(batch) for b, batch in requests.items()}
+                for name, model in eager.items()}
+        # the bundles, fresh, serving with the launch counts from 0
+        bundles = {name: BundleModel(d, device="cuda") for name, d in dirs.items()}
+        program_ops = {name: {str(b): _kernel_ops(gm) for b, gm in bundle._programs.items()}
+                       for name, bundle in bundles.items()}
+        for name, by_bucket in program_ops.items():
+            for bucket, ops in by_bucket.items():
+                missing = [k for k, names in EXPORT_OPS.items()
+                           if not any(ops.get(n) for n in names)]
+                if missing:
+                    failures.append(f"export {name} bucket {bucket}: no op node of {missing}")
+        kernels.reset_launch_counts()
+        got = {name: {b: bundle.predict(batch) for b, batch in requests.items()}
+               for name, bundle in bundles.items()}
+        launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+        result = {"phase": "export_agreement", "gpu": card, "program_ops": program_ops,
+                  "launches": launches, "rel_rmse_bound": EXPORT_REL_RMSE}
+        for name in ("bf16", "int8"):
+            result[name] = {}
+            for b in requests:
+                errs = outputs_rel_rmse(got[name][b], want[name][b])
+                result[name][f"b{b}"] = errs
+                bucket = 1 if b == 1 else 10
+                if any(not e <= EXPORT_REL_RMSE for e in errs.values()):
+                    failures.append(f"export {name} b={b} (bucket {bucket}) vs eager: {errs}")
+                check_outputs(f"export {name} b={b}", got[name][b], b, failures)
+        # reported, not gated: the bf16 bundle against the fp32 weights, and
+        # int8 against bf16
+        result["bf16_vs_fp32_weights"] = outputs_rel_rmse(got["bf16"][10], want["original"][10])
+        result["int8_vs_bf16"] = outputs_rel_rmse(got["int8"][10], got["bf16"][10])
+        result["int8_vs_bf16_top1_agreement"] = {
+            h: float(np.mean(got["int8"][10][h].argmax(-1) == got["bf16"][10][h].argmax(-1)))
+            for h in ("verb", "noun")}
+        emit(result)
+        for name in EXPORT_OPS:
+            if launches[name] < 1:
+                failures.append(f"kernel {name} was not launched serving the bundles")
+
+        # BatchingFront: ten concurrent b=1 requests against their lone predicts
+        front_model = bundles["int8"]  # one bucket: lone and grouped rows share a program
+        singles = [front_model.example_batch(1, seed=60 + i) for i in range(10)]
+        start = time.perf_counter()
+        lone = [front_model.predict(batch) for batch in singles]
+        serial_s = time.perf_counter() - start
+        front = BatchingFront(front_model, window_ms=5.0)
+        replies: list = [None] * len(singles)
+        barrier = threading.Barrier(len(singles))
+
+        def client(i):
+            barrier.wait()
+            try:
+                replies[i] = front.submit(singles[i])
+            except Exception as exc:  # each reply is checked below
+                replies[i] = exc
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(singles))]
+        start = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=300)
+        concurrent_s = time.perf_counter() - start
+        front.close()
+        errs = []
+        for i, reply in enumerate(replies):
+            if not isinstance(reply, dict):
+                failures.append(f"BatchingFront request {i}: {reply!r}")
+                continue
+            errs.append(max(outputs_rel_rmse(reply, lone[i]).values()))
+        emit({"phase": "export_batching_front", "gpu": card, "bundle": "int8",
+              "window_ms": 5.0, "requests": len(singles),
+              "group_sizes": dict(front.group_sizes), "concurrent_s": concurrent_s,
+              "serial_s": serial_s, "max_rel_rmse_vs_lone": max(errs, default=None),
+              "rel_rmse_bound": EXPORT_REL_RMSE})
+        if any(not e <= EXPORT_REL_RMSE for e in errs):
+            failures.append(f"BatchingFront replies vs lone predicts: rel-RMSE {errs}")
+        if not any(size > 1 for size in front.group_sizes):
+            failures.append(f"BatchingFront coalesced no group: {dict(front.group_sizes)}")
+
+        # latency and device launches per request: the bundles beside eager
+        perf = {"phase": "export_latency", "gpu": card}
+        for name, model in (("bf16_bundle", bundles["bf16"]), ("int8_bundle", bundles["int8"]),
+                            ("eager", eager["original"])):
+            perf[name] = {f"b{b}": bench(model, 20, b) for b in (1, 10)}
+            batch = requests[10]
+            model.predict(batch)
+            perf[name]["profile_b10"] = device_profile(lambda: model.predict(batch))
+        emit(perf)
+        del bundles, eager, front_model
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     global _LOG
     parser = argparse.ArgumentParser(description=__doc__,
@@ -1801,6 +1991,13 @@ def main(argv=None) -> int:
     if resident_max[0] != resident_max[1]:
         failures.append(f"conv3x3 resident route's largest C_in: kernels.py says "
                         f"{resident_max[0]}, the library {resident_max[1]}")
+
+    mha_lib = kernels._library("mha")
+    limits = (kernels.MHA_LIMITS,
+              (mha_lib.mha_max_heads(), mha_lib.mha_max_seq(), mha_lib.mha_bf16_tile()))
+    emit({"phase": "mha_limits", "python_vs_library": limits})
+    if tuple(limits[0]) != tuple(limits[1]):
+        failures.append(f"mha limits: kernels.py says {limits[0]}, the library {limits[1]}")
 
     limits = {"max_features": (kernels.CONSENSUS_MAX_FEATURES,
                                kernels._library("consensus_heads").consensus_heads_max_features()),
@@ -1886,9 +2083,13 @@ def main(argv=None) -> int:
     # the training entry point: main in train mode, resume, reload, test mode
     trainer_launches = trainer_path(card, failures)
     emit({"phase": "launches", "path": "trainer", **trainer_launches})
-    # launches: this slice's main path, the training entry point, for the
-    # kernels it runs; conv3x3 runs on the probe's path only
-    launches = {name: trainer_launches[name] for name in TRAINER_KERNELS}
+
+    # the serving export: bundles with the kernels as op nodes, served
+    export_launches = export_path(card, failures)
+    emit({"phase": "launches", "path": "export", **export_launches})
+    # launches: this slice's main path, the export's bundles serving, for
+    # the kernels it runs; conv3x3 runs on the probe's path only
+    launches = {name: export_launches[name] for name in EXPORT_OPS}
     launches["conv3x3"] = probe_launches["conv3x3"]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

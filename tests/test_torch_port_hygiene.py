@@ -68,11 +68,11 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    for module in ("tools.serve", "tools.train", "tools.test", "main", "ops.kernels",
-                   "ops.pooling", "models.losses", "parallel.optim", "parallel.train_step",
-                   "utils.metrics", "utils.checkpoint", "utils.logging", "data.loader",
-                   "data.dataset", "data.classes", "models.builder", "models.convert",
-                   "models.bridge"):
+    for module in ("tools.serve", "tools.export", "tools.train", "tools.test", "main",
+                   "ops.kernels", "ops.pooling", "models.losses", "parallel.optim",
+                   "parallel.train_step", "utils.metrics", "utils.checkpoint",
+                   "utils.logging", "data.loader", "data.dataset", "data.classes",
+                   "models.builder", "models.convert", "models.bridge"):
         assert f"{PACKAGE}.{module}" in result["imported"]
     assert [m for m in result["loaded"] if forbidden(m)] == []
 
