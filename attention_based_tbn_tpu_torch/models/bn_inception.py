@@ -93,6 +93,8 @@ class BNInception(nn.Module):
     """BN-Inception tower; ``forward`` runs the eval graph or, in training
     mode, the train graph."""
 
+    feature_size = FEATURE_SIZE
+
     def __init__(self, in_channels: int, freq_pool_only: bool = False,
                  audio_stem: bool = False, pool_impl: str = "reduce_window",
                  fused_stem: bool = False, pool_fast_vjp: bool = False):

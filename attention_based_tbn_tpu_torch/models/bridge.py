@@ -5,7 +5,10 @@ under ``params`` and ``batch_stats`` (HWIO conv kernels, (in, out) dense
 kernels). The port keeps the reference PyTorch state-dict layout, the one
 the JAX package's ``models/convert_back.export_tbn_state_dict`` emits:
 ``Base_RGB.conv1_7x7_s2.weight``, ``Base_RGB.conv1_7x7_s2_bn.running_var``,
-``pe.1.weight``, ``attention_layer.attention_layer.in_proj_weight``, ...
+``pe.1.weight``, ``attention_layer.attention_layer.in_proj_weight``, ...;
+ResNet and VGG towers in torchvision's layout under ``Base_<m>.model.``
+(``Base_RGB.model.layer1.0.downsample.1.running_var``,
+``Base_RGB.model.features.0.weight``, ``Base_RGB.model.classifier.3.bias``).
 
 * :func:`jax_to_state_dict` — variables (numpy) -> state dict (numpy), for
   ``load_state_dict(strict=True)``; buffers the reference also stores (the
@@ -13,7 +16,10 @@ the JAX package's ``models/convert_back.export_tbn_state_dict`` emits:
 * :func:`jax_tower_to_state_dict` — the same for one tower's trees, as a
   converted pretrained ``.npz`` tower holds them (models/convert.py).
 * :func:`state_dict_to_jax` — the inverse, so that weights drawn by the
-  port can be fed to the JAX package (the tests do).
+  port can be fed to the JAX package (the tests do). It takes no spec: a
+  tower's family is told by its keys (``model.layer...`` ResNet,
+  ``model.features...`` VGG, else BN-Inception), VGG's BatchNorm by its
+  running statistics and its depth by its number of convs.
 * :func:`kernel_keys` — the state-dict keys whose tensors are images of
   JAX ``kernel`` leaves (conv and dense weights: what the serving export
   quantizes or casts).
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from .attention import PE_CHANNELS, positional_encoding_table, prototypes
+from .vgg import VGG_CONFIGS, vgg_base_type, vgg_conv_feature_indices
 
 _MHA_PROJ = ("q_proj", "k_proj", "v_proj")
 
@@ -83,27 +90,107 @@ def _emit_tower(out: Dict[str, np.ndarray], prefix: str, params: Mapping,
                 _emit_conv_bn(out, f"{prefix}{name}_{branch}", cell, _get(sub_stats, branch))
 
 
-def jax_tower_to_state_dict(params: Mapping, stats: Optional[Mapping] = None
+def _emit_bn(out: Dict[str, np.ndarray], key: str, node: Mapping,
+             stats: Optional[Mapping]) -> None:
+    """{scale, bias} (+ {mean, var}) -> torch BatchNorm ``key.*``."""
+    scale = _np(node["scale"])
+    out[f"{key}.weight"] = scale
+    out[f"{key}.bias"] = _np(node["bias"])
+    stats = stats or {}
+    out[f"{key}.running_mean"] = _np(stats.get("mean", np.zeros_like(scale)))
+    out[f"{key}.running_var"] = _np(stats.get("var", np.ones_like(scale)))
+    out[f"{key}.num_batches_tracked"] = np.zeros((), dtype=np.int64)
+
+
+def _emit_conv(out: Dict[str, np.ndarray], key: str, node: Mapping) -> None:
+    out[f"{key}.weight"] = np.transpose(_np(node["kernel"]), (3, 2, 0, 1)).copy()
+    if "bias" in node:
+        out[f"{key}.bias"] = _np(node["bias"])
+
+
+def export_resnet(params: Mapping, stats: Optional[Mapping] = None) -> Dict[str, np.ndarray]:
+    """A ResNet tower's Flax trees -> torchvision's state dict without ``fc``
+    (the JAX package's ``convert_back.export_resnet``): ``layer<s>_<i>``
+    blocks become ``layer<s>.<i>``, their ``downsample_conv`` /
+    ``downsample_bn`` ``downsample.0`` / ``downsample.1``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        node_stats = _get(stats, name)
+        if name == "conv1":
+            _emit_conv(out, name, node)
+        elif name == "bn1":
+            _emit_bn(out, name, node, node_stats)
+        elif name.startswith("layer"):
+            prefix = ".".join(name.rsplit("_", 1))
+            for sub, sub_node in node.items():
+                key = {"downsample_conv": "downsample.0",
+                       "downsample_bn": "downsample.1"}.get(sub, sub)
+                if "kernel" in sub_node:
+                    _emit_conv(out, f"{prefix}.{key}", sub_node)
+                else:
+                    _emit_bn(out, f"{prefix}.{key}", sub_node, _get(node_stats, sub))
+    return out
+
+
+def export_vgg(params: Mapping, stats: Optional[Mapping] = None,
+               vgg_type: str = "16") -> Dict[str, np.ndarray]:
+    """A VGG tower's Flax trees -> torchvision's state dict without the last
+    classifier Linear (the JAX package's ``convert_back.export_vgg``):
+    ``conv<i>`` / ``bn<i>`` at their ``features.<idx>``, ``fc1`` / ``fc2``
+    as ``classifier.0`` / ``classifier.3``."""
+    feat_of_conv = {conv: feat for feat, conv in vgg_conv_feature_indices(
+        vgg_type, vgg_type.endswith("bn") or bool(stats)).items()}
+    out: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        if name.startswith("conv"):
+            _emit_conv(out, f"features.{feat_of_conv[int(name[4:])]}", node)
+        elif name.startswith("bn"):
+            _emit_bn(out, f"features.{feat_of_conv[int(name[2:])] + 1}", node,
+                     _get(stats, name))
+        elif name in ("fc1", "fc2"):
+            key = "classifier.0" if name == "fc1" else "classifier.3"
+            out[f"{key}.weight"] = _np(node["kernel"]).T.copy()
+            out[f"{key}.bias"] = _np(node["bias"])
+    return out
+
+
+def jax_tower_to_state_dict(params: Mapping, stats: Optional[Mapping] = None,
+                            arch: str = "bninception", vgg_type: str = "16"
                             ) -> Dict[str, np.ndarray]:
-    """One BN-Inception tower's Flax ``params`` / ``batch_stats`` trees (as
-    a converted ``.npz`` tower holds them) -> the tower's state dict, keys
-    relative to the tower (``conv1_7x7_s2.weight``, ...)."""
+    """One tower's Flax ``params`` / ``batch_stats`` trees (as a converted
+    ``.npz`` tower holds them) -> the tower's state dict: BN-Inception's
+    keys relative to the tower (``conv1_7x7_s2.weight``, ...), ResNet's and
+    VGG's torchvision keys (``conv1.weight``, ``features.0.weight``, ...)."""
+    if arch == "resnet":
+        return export_resnet(params, stats)
+    if arch == "vgg":
+        return export_vgg(params, stats, vgg_type)
     out: Dict[str, np.ndarray] = {}
     _emit_tower(out, "", params, stats)
     return out
 
 
+def _tower_prefix(tower: str, arch: str) -> str:
+    """The state-dict prefix of a tower's keys: the reference wraps the
+    torchvision ResNet and VGG under ``.model``; BN-Inception's keys sit
+    directly under the tower."""
+    return f"{tower}." if arch == "bninception" else f"{tower}.model."
+
+
 def jax_to_state_dict(variables: Mapping[str, Any], spec) -> Dict[str, np.ndarray]:
     """Flax TBN variables -> the port's (reference-layout) state dict."""
-    if spec.arch != "bninception":
-        raise ValueError(f"arch {spec.arch!r} is not ported yet")
+    if spec.arch not in ("bninception", "resnet", "vgg"):
+        raise ValueError(f"Unknown arch {spec.arch!r}")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: Dict[str, np.ndarray] = {}
 
     for tower, node in params.items():
         if tower.startswith("Base_"):
-            _emit_tower(out, f"{tower}.", node, _get(stats, tower))
+            tower_sd = jax_tower_to_state_dict(node, _get(stats, tower), spec.arch,
+                                               getattr(spec, "vgg_type", "16"))
+            prefix = _tower_prefix(tower, spec.arch)
+            out.update({prefix + k: v for k, v in tower_sd.items()})
 
     fusion = _get(params, "fusion", "fc")
     if fusion is not None:
@@ -143,6 +230,95 @@ def jax_to_state_dict(variables: Mapping[str, Any], spec) -> Dict[str, np.ndarra
     return out
 
 
+def _conv_to_jax(params: Dict, path, leaf: str, value) -> None:
+    if leaf == "weight":
+        _set(params, path + ["kernel"], np.transpose(value, (2, 3, 1, 0)))
+    elif leaf == "bias":
+        _set(params, path + ["bias"], value)
+
+
+def _bn_to_jax(params: Dict, stats: Dict, path, leaf: str, value) -> None:
+    if leaf in ("weight", "bias"):
+        _set(params, path + ["scale" if leaf == "weight" else "bias"], value)
+    elif leaf in ("running_mean", "running_var"):
+        _set(stats, path + ["mean" if leaf == "running_mean" else "var"], value)
+
+
+def _bninception_to_jax(tower: str, sd: Mapping, params: Dict, stats: Dict) -> None:
+    for key, value in sd.items():
+        name, _, leaf = key.rpartition(".")
+        is_bn = name.endswith("_bn")
+        cell = name[: -len("_bn")] if is_bn else name
+        if cell.startswith("inception_"):
+            _, block, branch = cell.split("_", 2)
+            path = [tower, f"inception_{block}", branch]
+        else:
+            path = [tower, cell]
+        if is_bn:
+            _bn_to_jax(params, stats, path + ["bn"], leaf, value)
+        else:
+            _conv_to_jax(params, path + ["conv"], leaf, value)
+
+
+def _resnet_to_jax(tower: str, sd: Mapping, params: Dict, stats: Dict) -> None:
+    """torchvision ResNet keys (the JAX package's ``convert.convert_resnet``:
+    ``fc`` and the batch counters dropped)."""
+    for key, value in sd.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        if parts[0] == "fc" or leaf == "num_batches_tracked":
+            continue
+        if parts[0] in ("conv1", "bn1"):
+            path, is_conv = [tower, parts[0]], parts[0] == "conv1"
+        elif parts[2] == "downsample":
+            is_conv = parts[3] == "0"
+            path = [tower, f"{parts[0]}_{parts[1]}",
+                    "downsample_conv" if is_conv else "downsample_bn"]
+        else:
+            path, is_conv = [tower, f"{parts[0]}_{parts[1]}", parts[2]], parts[2].startswith("conv")
+        if is_conv:
+            _conv_to_jax(params, path, leaf, value)
+        else:
+            _bn_to_jax(params, stats, path, leaf, value)
+
+
+def _vgg_to_jax(tower: str, sd: Mapping, params: Dict, stats: Dict) -> None:
+    """torchvision VGG keys (the JAX package's ``convert.convert_vgg``:
+    ``classifier.6`` and the batch counters dropped). BatchNorm is told by
+    the running statistics, the VGG config by the number of convs."""
+    batch_norm = any(k.endswith(".running_mean") for k in sd)
+    n_convs = len({k for k in sd if k.startswith("features.") and k.endswith(".weight")
+                   and np.ndim(sd[k]) == 4})
+    types = [t for t, cfg in VGG_CONFIGS.items() if sum(c != "M" for c in cfg) == n_convs]
+    if not types:
+        raise ValueError(f"{tower}: {n_convs} VGG convs match no config of {sorted(VGG_CONFIGS)}")
+    conv_map = vgg_conv_feature_indices(types[0], batch_norm)
+    for key, value in sd.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        idx = int(parts[1])
+        if parts[0] == "features" and idx in conv_map:
+            _conv_to_jax(params, [tower, f"conv{conv_map[idx]}"], leaf, value)
+        elif parts[0] == "features" and batch_norm and idx - 1 in conv_map:
+            _bn_to_jax(params, stats, [tower, f"bn{conv_map[idx - 1]}"], leaf, value)
+        elif parts[0] == "classifier" and idx in (0, 3):
+            _set(params, [tower, "fc1" if idx == 0 else "fc2",
+                          "kernel" if leaf == "weight" else "bias"],
+                 value.T if leaf == "weight" else value)
+
+
+def _tower_arch(tower_keys) -> str:
+    """A tower's family from its state-dict keys (relative to the tower)."""
+    rest = [k[len("model."):] for k in tower_keys if k.startswith("model.")]
+    if any(k.startswith("features.") for k in rest):
+        return "vgg"
+    if rest:
+        return "resnet"
+    return "bninception"
+
+
 def state_dict_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
     """The port's state dict -> Flax variables {"params", "batch_stats"} as
     numpy (inverse of :func:`jax_to_state_dict`; regenerated buffers are
@@ -151,25 +327,23 @@ def state_dict_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
     stats: Dict[str, Any] = {}
     sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
           for k, v in state_dict.items()}
+    towers: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in sd.items():
-        head, _, leaf = key.rpartition(".")
         if key.startswith("Base_"):
-            tower, _, name = head.partition(".")
-            is_bn = name.endswith("_bn")
-            cell = name[: -len("_bn")] if is_bn else name
-            if cell.startswith("inception_"):
-                block, branch = cell.split("_", 2)[1], cell.split("_", 2)[2]
-                path = [tower, f"inception_{block}", branch]
-            else:
-                path = [tower, cell]
-            if not is_bn:
-                v = np.transpose(value, (2, 3, 1, 0)) if leaf == "weight" else value
-                _set(params, path + ["conv", "kernel" if leaf == "weight" else "bias"], v)
-            elif leaf in ("weight", "bias"):
-                _set(params, path + ["bn", "scale" if leaf == "weight" else "bias"], value)
-            elif leaf in ("running_mean", "running_var"):
-                _set(stats, path + ["bn", "mean" if leaf == "running_mean" else "var"], value)
-        elif key.startswith("fusion.fusion_layer.0."):
+            tower, _, rest = key.partition(".")
+            towers.setdefault(tower, {})[rest] = value
+    for tower, tower_sd in towers.items():
+        arch = _tower_arch(tower_sd)
+        if arch == "bninception":
+            _bninception_to_jax(tower, tower_sd, params, stats)
+        else:
+            body = {k[len("model."):]: v for k, v in tower_sd.items()}
+            (_vgg_to_jax if arch == "vgg" else _resnet_to_jax)(tower, body, params, stats)
+    for key, value in sd.items():
+        if key.startswith("Base_"):
+            continue
+        head, _, leaf = key.rpartition(".")
+        if key.startswith("fusion.fusion_layer.0."):
             _set(params, ["fusion", "fc", "kernel" if leaf == "weight" else "bias"],
                  value.T if leaf == "weight" else value)
         elif key.startswith("classifier."):

@@ -2,8 +2,10 @@
 
 Port of the math of the JAX package's ``models/layers.py``: convolutions
 with bias; BatchNorm on running statistics (eps 1e-5) folded into the
-preceding convolution at eval, and with live batch statistics, pad-row
-masks and the running-stat update in training (``batch_norm_train``);
+preceding convolution at eval (BN-Inception), or applied after it as a
+per-channel affine (``conv_bn``: ResNet and VGG, as TorchBatchNorm does),
+and with live batch statistics, pad-row masks and the running-stat update
+in training (``batch_norm_train``);
 Linear layers computed in the compute dtype; dropout from an explicit
 generator; and the seeded initializers. Parameters stay float32 nn.Module parameters
 in the reference PyTorch layout (OIHW convs, (out, in) linears); compute
@@ -162,6 +164,50 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mean_offset: torch.Ten
         bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var * correction)
     inv = torch.rsqrt(var + bn.eps) * bn.weight
     return (xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
+
+
+def bn_eval_affine(mean: torch.Tensor, var: torch.Tensor, gamma: torch.Tensor,
+                   beta: torch.Tensor, eps: float, dtype: torch.dtype
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BatchNorm on running statistics as a per-channel (scale, offset),
+    the JAX package's TorchBatchNorm at eval (layers.py:364-375): scale =
+    rsqrt(var + eps) * gamma and offset = beta - mean * scale in float32,
+    each rounded to ``dtype``."""
+    scale = torch.rsqrt(var + eps) * gamma
+    return scale.to(dtype), (beta - mean * scale).to(dtype)
+
+
+def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn, cache: CastCache, name: str,
+            row_mask: torch.Tensor = None) -> torch.Tensor:
+    """Conv -> BatchNorm of the ResNet and VGG towers (no activation), in
+    x's dtype, unfolded as the JAX package computes them (only BN-Inception
+    folds; folding here would round the kernel, not the output, at bf16):
+
+    * the convolution in x's dtype; its bias, where it has one (VGG), added
+      after the product's rounding, as TorchConv adds it;
+    * eval: ``y * scale + offset`` with :func:`bn_eval_affine`'s pair,
+      cached per version of the statistics, rounded once (``addcmul``);
+    * training (``bn.training``): live float32 statistics
+      (:func:`batch_norm_train`, pad rows masked by ``row_mask``), the
+      output rounded to x's dtype;
+    * ``bn`` None: the convolution alone (VGG without BatchNorm).
+
+    ``cache`` holds the parameters rounded to x's dtype (``name`` keys
+    them)."""
+    dtype = x.dtype
+    sources = (conv.weight,) if conv.bias is None else (conv.weight, conv.bias)
+    params = cache.get(name, sources, dtype)
+    y = F.conv2d(x, params[0], None, conv.stride, conv.padding)
+    if conv.bias is not None:
+        y = y + params[1].view(1, -1, 1, 1)
+    if bn is None:
+        return y
+    if bn.training:
+        return batch_norm_train(y, bn, None, row_mask).to(dtype)
+    scale, offset = cache.derive(
+        f"{name}/bn/{dtype}", (bn.running_mean, bn.running_var, bn.weight, bn.bias),
+        torch.float32, lambda m, v, g, b: bn_eval_affine(m, v, g, b, bn.eps, dtype))
+    return torch.addcmul(offset.view(1, -1, 1, 1), y, scale.view(1, -1, 1, 1))
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:

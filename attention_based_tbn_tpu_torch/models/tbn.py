@@ -3,8 +3,9 @@
 Port of the JAX package's ``models/tbn.py`` (reference
 core/models/model.py:205-262):
 
-* per-modality BN-Inception towers run on the (batch * segments) folded
-  batch; the audio waveform becomes a log spectrogram inside the forward;
+* per-modality towers (``model.arch``: BN-Inception, ResNet or VGG) run on
+  the (batch * segments) folded batch; the audio waveform becomes a log
+  spectrogram inside the forward;
 * the audio feature is reduced with fixed prior weights, or attended with
   the first modality's feature as query (MHA / unimodal / prototype);
 * under 10-crop the audio rows are tiled to the visual crop rows;
@@ -43,6 +44,10 @@ from .attention import MHAttention, PositionalEncoding, PrototypeAttention, UniM
 from .bn_inception import FEATURE_SIZE, BNInception
 from .heads import Classifier, Fusion
 from .layers import CastCache, compute_dtype
+from .resnet import RESNET_CONFIGS, ResNet
+from .vgg import VGG, VGG_CONFIGS, vgg_base_type
+
+ARCHS = ("bninception", "resnet", "vgg")
 
 
 def tile_crop_rows(feature: torch.Tensor, b: int, reps: int) -> torch.Tensor:
@@ -83,6 +88,8 @@ class TBNSpec:
     fusion_dropout: float = 0.5
     # Modalities whose tower uses the two-branch (3,1)/(1,3) audio stem.
     audio_stem: Tuple[str, ...] = ()
+    resnet_depth: int = 101
+    vgg_type: str = "16"
     flow_win_length: int = 5
     spec_type: str = "stft"
     sampling_rate: int = 24000
@@ -127,6 +134,8 @@ class TBNSpec:
             audio_dropout=float(cfg.data.audio.dropout),
             fusion_dropout=float(cfg.model.fusion_dropout),
             audio_stem=("Audio",) if cfg.get_path("model.bninception.audio_stem", False) else (),
+            resnet_depth=int(cfg.model.resnet.depth),
+            vgg_type=str(cfg.model.vgg.type),
             rgb_mean=tuple(cfg.data.rgb.mean),
             rgb_std=tuple(cfg.data.rgb.std),
             flow_mean=tuple(cfg.data.flow.mean),
@@ -157,15 +166,25 @@ class TBNSpec:
         return self.audio_attends and not self.use_fixed
 
     def validate(self) -> None:
-        if self.arch != "bninception":
-            raise ValueError(
-                f"arch {self.arch!r} is not ported yet; the port has the "
-                "bninception towers only"
-            )
+        if self.arch not in ARCHS:
+            raise ValueError(f"Unknown arch {self.arch!r}")
+        if self.arch == "resnet" and self.resnet_depth not in RESNET_CONFIGS:
+            raise ValueError(f"model.resnet.depth={self.resnet_depth} not in "
+                             f"{sorted(RESNET_CONFIGS)}")
+        if self.arch == "vgg" and vgg_base_type(self.vgg_type) not in VGG_CONFIGS:
+            raise ValueError(f"model.vgg.type={self.vgg_type!r}: the base type must be one of "
+                             f"{sorted(VGG_CONFIGS)}")
         if self.attention_enable and not self.use_fixed and self.modality == ("Audio",):
             raise ValueError(
                 "learned attention needs a visual query modality; "
                 "audio-only supports attention.use_fixed only"
+            )
+        if self.attention_enable and "Audio" in self.modality and self.arch != "bninception":
+            # only the BN-Inception audio tower keeps its temporal axis; the
+            # JAX package's error (models/tbn.py:214-225)
+            raise ValueError(
+                "audio attention requires arch=bninception "
+                "(resnet/vgg towers have no temporal feature axis)"
             )
         if self.attention_enable and self.attention_type not in ("mha", "unimodal", "proto"):
             raise ValueError(f"Unknown attention type {self.attention_type!r}")
@@ -191,14 +210,20 @@ class TBNModel(nn.Module):
         self.spec = spec
         in_channels = {"RGB": 3, "Flow": 2 * spec.flow_win_length, "Audio": 1}
         for m in spec.modality:
-            self.add_module(f"Base_{m}", BNInception(
-                in_channels[m],
-                freq_pool_only=(m == "Audio" and spec.audio_attends),
-                audio_stem=(m in spec.audio_stem),
-                pool_impl=spec.pool_impl,
-                pool_fast_vjp=spec.pool_fast_vjp,
-                fused_stem=spec.fused_stem,
-            ))
+            if spec.arch == "resnet":
+                tower = ResNet(in_channels[m], spec.resnet_depth)
+            elif spec.arch == "vgg":
+                tower = VGG(in_channels[m], spec.vgg_type)
+            else:
+                tower = BNInception(
+                    in_channels[m],
+                    freq_pool_only=(m == "Audio" and spec.audio_attends),
+                    audio_stem=(m in spec.audio_stem),
+                    pool_impl=spec.pool_impl,
+                    pool_fast_vjp=spec.pool_fast_vjp,
+                    fused_stem=spec.fused_stem,
+                )
+            self.add_module(f"Base_{m}", tower)
         if spec.learned_attention:
             if spec.attention_type == "mha":
                 if spec.use_pe:
@@ -210,7 +235,7 @@ class TBNModel(nn.Module):
             else:
                 self.attention_layer = PrototypeAttention(spec.attn_win,
                                                           use_gumbel=spec.use_gumbel)
-        n_features = FEATURE_SIZE * len(spec.modality)
+        n_features = sum(self.feature_size(m) for m in spec.modality)
         if spec.multimodal:
             self.fusion = Fusion(n_features, 512, spec.fusion_dropout)
             n_features = 512
@@ -225,6 +250,13 @@ class TBNModel(nn.Module):
             std_t = torch.tensor(std * reps, dtype=torch.float32)
             self.register_buffer(f"_{m}_scale", 1.0 / (255.0 * std_t), persistent=False)
             self.register_buffer(f"_{m}_offset", -mean_t / std_t, persistent=False)
+            self.register_buffer(f"_{m}_mean", mean_t, persistent=False)
+            self.register_buffer(f"_{m}_std", std_t, persistent=False)
+
+    def feature_size(self, modality: str) -> int:
+        """Width of a modality's tower feature: 1024 (BN-Inception), 512 *
+        the block expansion (ResNet: 2048 from depth 50 on), 4096 (VGG)."""
+        return getattr(self, f"Base_{modality}").feature_size
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with the JAX package's initializers, module by module
@@ -259,15 +291,25 @@ class TBNModel(nn.Module):
                                 spec.sampling_rate, dtype)[:, None]
             else:  # (B, N, H, W, C) -> (B*N, C, H, W)
                 x = x.reshape((b * n,) + x.shape[2:]).permute(0, 3, 1, 2)
-            scale = offset = None
-            if m in ("RGB", "Flow") and x.dtype == torch.uint8:
-                scale, offset = getattr(self, f"_{m}_scale"), getattr(self, f"_{m}_offset")
             row_mask = None
             if self.training and true_batch is not None:
                 # 0/1 per folded (sample, segment) row; rows are batch-major
                 row_mask = (torch.arange(b, device=x.device) < true_batch).float()
                 row_mask = row_mask.repeat_interleave(x.shape[0] // b)
-            feature = getattr(self, f"Base_{m}")(x, dtype, scale, offset, row_mask)
+            tower = getattr(self, f"Base_{m}")
+            uint8 = m in ("RGB", "Flow") and x.dtype == torch.uint8
+            if spec.arch == "bninception":
+                scale = offset = None
+                if uint8:
+                    scale, offset = getattr(self, f"_{m}_scale"), getattr(self, f"_{m}_offset")
+                feature = tower(x, dtype, scale, offset, row_mask)
+            else:
+                if uint8:
+                    x = self._normalize(m, x, dtype)
+                if spec.arch == "vgg":
+                    feature = tower(x, dtype, row_mask, generator)
+                else:
+                    feature = tower(x, dtype, row_mask)
             if m == "Audio":
                 feature, att_wts = self._attend(batch, features, feature, b, use_kernels,
                                                 generator)
@@ -306,6 +348,16 @@ class TBNModel(nn.Module):
         if att_wts is not None:
             out["weights"] = att_wts
         return out
+
+    def _normalize(self, modality: str, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """uint8 -> (x / 255 - mean) / std in the compute dtype, mean and std
+        cast to it: the JAX package's ``_normalize`` (models/tbn.py:468-482)
+        for the ResNet and VGG towers. (BN-Inception's stem takes the
+        float32 scale / offset form instead, as in the JAX package; the two
+        round differently at bf16.)"""
+        mean = getattr(self, f"_{modality}_mean").to(dtype)[:, None, None]
+        std = getattr(self, f"_{modality}_std").to(dtype)[:, None, None]
+        return (x.to(dtype) / 255.0 - mean) / std
 
     def _attend(self, batch, features, feature, b: int, use_kernels: bool,
                 generator) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

@@ -1,4 +1,4 @@
-"""Pools of the BN-Inception towers, on NCHW tensors.
+"""Pools of the towers, on NCHW tensors.
 
 Port of the JAX package's ``ops/pooling.py``, which rebuilds torch's
 ``ceil_mode`` pooling on XLA: output size ``ceil((H + 2p - k) / s) + 1``,
@@ -108,3 +108,17 @@ def global_avg_pool(x: torch.Tensor, freq_only: bool = False) -> torch.Tensor:
     if freq_only:
         return xf.mean(dim=2).transpose(1, 2).to(x.dtype).contiguous()
     return xf.mean(dim=(2, 3)).to(x.dtype)
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """torch.nn.AdaptiveAvgPool2d on NCHW input, the JAX package's
+    ``adaptive_avg_pool2d`` (ops/pooling.py:299-321): output cell (i, j)
+    averages the window [floor(i*H/oh), ceil((i+1)*H/oh)) x [floor(j*W/ow),
+    ceil((j+1)*W/ow)), so an input smaller than the output repeats cells;
+    the mean accumulates in float32 and is returned in x's type. An input
+    that already has the target size is returned unchanged (VGG's 7 x 7
+    pool at 224-px crops)."""
+    oh, ow = _pair(out_hw)
+    if tuple(x.shape[2:]) == (oh, ow):
+        return x
+    return F.adaptive_avg_pool2d(x.float(), (oh, ow)).to(x.dtype)

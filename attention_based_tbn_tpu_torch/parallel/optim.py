@@ -9,7 +9,10 @@ core/tools/train.py:189-217, core/models/model.py:148-176):
   package the clip sits inside ``optax.multi_transform``'s "train" branch);
 * weight decay added to the clipped gradient;
 * freeze rules ``all`` (whole towers frozen) and ``partialbn`` (BN affine
-  parameters frozen except the stem's first BN; see ``STEM_BN_TRAINABLE``);
+  parameters frozen except the stem's first BN; see ``STEM_BN_TRAINABLE``),
+  which applies to BN-Inception only: ResNet and VGG towers train every
+  parameter under it, as in the reference, and a warning says so as the
+  JAX package's does;
 * gradient accumulation as ``optax.MultiSteps``: the mean gradient of
   ``accumulator_step`` backward passes, one update every k of them.
 
@@ -24,6 +27,7 @@ corrected update (L2 decay, not AdamW, on both sides).
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List
 
 import torch
@@ -63,7 +67,17 @@ def freeze_labels(model: torch.nn.Module, cfg) -> Dict[str, str]:
     """{parameter name: "train" or "freeze"} by the config's freeze rule."""
     freeze_base = bool(cfg.model.freeze_base)
     mode = cfg.model.freeze_mode
-    partial = mode == "partialbn" and cfg.model.arch == "bninception"
+    arch = cfg.model.arch
+    partial = mode == "partialbn" and arch == "bninception"
+    if freeze_base and mode == "partialbn" and not partial:
+        # the reference ignores partialbn for these towers without a word
+        # (model.py:164); the JAX package's warning (parallel/optim.py:84-96)
+        logging.getLogger(__name__).warning(
+            "model.freeze_mode='partialbn' only applies to the bninception "
+            "arch (reference model.py:164-176); arch=%r trains ALL tower "
+            "parameters — use model.freeze_mode='all' to freeze the towers.",
+            arch,
+        )
     labels = {}
     for name, _ in model.named_parameters():
         tower, _, rest = name.partition(".")

@@ -3,7 +3,8 @@
 Port of the JAX package's ``tools/export.py``. It writes, into
 ``<out_dir>/export/`` (or ``out_dir``):
 
-* ``module.pt2`` — the eval forward (BN folded, on-device spectrogram) at
+* ``module.pt2`` — the eval forward (BatchNorm folded into BN-Inception's
+  convs, applied after ResNet's and VGG's; on-device spectrogram) at
   the main batch, captured by ``torch.export`` and saved with
   ``torch.export.save``; ``module.b<k>.pt2`` the same forward at each extra
   batch bucket. Each program takes the parameters as inputs (through
@@ -21,9 +22,9 @@ Port of the JAX package's ``tools/export.py``. It writes, into
 ``serving_dtype``: None for float32; ``"bfloat16"`` casts the kernels (the
 conv and dense weights: the images of JAX ``kernel`` leaves,
 ``models/bridge.kernel_keys``) and keeps BatchNorm, biases and buffers in
-float32 (the fold needs ``rsqrt(var + eps)`` in float32); ``"int8"`` is
-weight-only symmetric per-output-channel quantization of the same
-tensors, the dequantize part of the exported graph.
+float32 (the fold and the affine need ``rsqrt(var + eps)`` in float32);
+``"int8"`` is weight-only symmetric per-output-channel quantization of the
+same tensors, the dequantize part of the exported graph.
 
 Usage::
 

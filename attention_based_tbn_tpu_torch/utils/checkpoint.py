@@ -23,8 +23,9 @@ reference's training checkpoints, of the JAX package's
 the JAX package's converter also leaves out (models/convert.py:83,
 :289-290, :341): ``num_batches_tracked`` counters, the ``pe.0``
 sin/cos table and ``prototype_wts`` (both regenerated), and a tower's
-``last_linear`` head. An Orbax directory of the JAX package is refused
-with the way to export it.
+ImageNet head, which the reference strips: BN-Inception's ``last_linear``,
+ResNet's ``model.fc`` and VGG's ``model.classifier.6``. An Orbax directory
+of the JAX package is refused with the way to export it.
 """
 
 from __future__ import annotations
@@ -43,9 +44,10 @@ HISTORY_KEYS = ("epoch", "train_loss", "validation_loss", "validation_accuracy")
 def tolerated_key(key: str) -> bool:
     """Keys a file may lack or carry beyond the model's."""
     parts = key.split(".")
+    head = ".".join(parts[1:-1]) if key.startswith("Base_") else None
     return (parts[-1] == "num_batches_tracked" or key.startswith("pe.0.")
             or key == "attention_layer.prototype_wts"
-            or (key.startswith("Base_") and len(parts) > 1 and parts[1] == "last_linear"))
+            or head in ("last_linear", "model.fc", "model.classifier.6"))
 
 
 def history_path(stem: str) -> str:

@@ -17,7 +17,8 @@ type as the models pass them: conv3x3 also at BN-Inception shapes (one on
 its streaming route) and a ragged one, each record naming the route the
 library took (``route``), and a NaN input; consensus_heads with its device
 time by CUDA graph (``graph_ms``) at every shape, plus one-row, one-clip,
-F = 1024 and one-, three- and four-head cases. Then drives six paths,
+F = 1024, 2048 and 4096 (a ResNet or VGG tower feeding the heads alone)
+and one-, three- and four-head cases. Then drives seven paths,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -35,7 +36,7 @@ after:
 * evaluation: the port's ``main`` in test mode at full width on a Flow
   (.npz stacks) + Audio (WAV) fixture written here with numpy, 10-crop, the
   fused stem, fast consensus and the challenge JSON, over a labelled and an
-  unlabelled annotation file (200 clips each), from a seeded ``{"model":
+  unlabelled annotation file (100 clips each), from a seeded ``{"model":
   state_dict}`` .pth; the same run with every kernel off must give the same
   uids and scores within the bf16 drift bound; clips/s from the run logs,
   and a device profile of one more sweep;
@@ -67,7 +68,19 @@ after:
   through a ``BatchingFront`` equal to their lone predicts, one group at
   least coalesced; export seconds, bytes, latency and device launches per
   request beside the eager model's. The kernels line's launches are this
-  path's (conv3x3's the probe's).
+  path's (conv3x3's the probe's);
+* the tower families (``arch_path``): ResNet-101 (tri-modal, attention
+  off, 224^2, 25 segments, bf16, fast consensus, kernels on, seeded
+  weights) served at b = 1 and 10 against the same weights in float32
+  with the kernels off and in bf16 with them off (the drift bound), with
+  latency, peak memory and a device profile (cuDNN convs, the BatchNorm
+  affine, the rest); evaluated through ``main`` (Flow .npz + Audio, 10-crop,
+  20 clips in each of two files, the challenge JSON; again with the
+  kernels off, scores compared); trained (12 x 3 segments, two warm-ups,
+  four timed steps); exported as a bf16 bundle at batch 1 and served
+  against eager on its own weights; then VGG-16 served at b = 1 and 2 (its
+  Audio tower's 8 x 13 map through the adaptive pool to 7 x 7).
+  consensus_heads must launch on each part.
 
 One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -174,9 +187,10 @@ CONV3X3_CASES = (
 CLASS_HEADS = (125, 352)  # verb, noun
 FUSION = 512
 # The evaluation path: 2 clips x 25 segments per batch, Flow 10-cropped;
-# videos x actions clips in each of its two annotation files.
+# videos x actions clips in each of its two annotation files (100: cut from
+# 200 to keep the whole smoke, arch path included, near half its limit).
 TEST_BATCH = 2
-TEST_VIDEOS, TEST_ACTIONS = 20, 10
+TEST_VIDEOS, TEST_ACTIONS = 10, 10
 TEST_STEMS = (("Flow", 500), ("Audio", 50))  # (modality, rows) of one forward's stems
 SERVE_STEMS = tuple((m, ROWS[-1]) for m in STEM_INPUTS)  # a b=10 served request's
 CONSENSUS_SHAPES = ((10, ROWS[0]), (10, ROWS[-1]), (TEST_BATCH, 10 * ROWS[0]))  # (B, N)
@@ -194,6 +208,10 @@ CONSENSUS_EXTRA = (
     (3, 10, FUSION, (125, 352, 97, 8), 0),
     (TEST_BATCH, ROWS[0], 100, CLASS_HEADS, 0),
     (TEST_BATCH, ROWS[0], FUSION, CLASS_HEADS, 1),
+    # one modality's ResNet (F = 2048, depth 50 on) or VGG (F = 4096)
+    # tower feeding the heads without Fusion, at a b=10 request's (10, 25)
+    (10, ROWS[0], 2048, CLASS_HEADS, 0),
+    (10, ROWS[0], 4096, CLASS_HEADS, 0),
 )
 # (C, H, W) per row of the four stride-2 ceil max pools of a tower (stem
 # pool1 and pool2, the passthrough of inception 3c and 4e), 224x224 crops
@@ -956,6 +974,9 @@ CATEGORIES = (
     ("max_pool_kernel", ("ceil_pool_forward", "ceil_pool_backward")),
     ("fused_stem", ("fused_stem_kernel", "stem_mma_kernel")),
     ("consensus_heads", ("consensus_heads_kernel",)),
+    # the ResNet / VGG towers' BatchNorm at eval: y * scale + offset after
+    # the conv (models/layers.conv_bn)
+    ("bn_affine", ("addcmul",)),
     ("conv", ("fprop", "convolve", "conv2d", "convolution", "winograd", "wgrad", "dgrad")),
     ("gemm", ("gemm", "gemv", "nvjet", "matmul")),
     ("pool", ("pool",)),
@@ -1938,6 +1959,250 @@ def export_path(card: str, failures: list) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The arch path: the ResNet and VGG tower families at full width (224^2,
+# 25 segments, bf16, kernels on), attention off (the JAX package refuses
+# audio attention on these towers), fast consensus on so that the eval
+# forward runs consensus_heads at F = 512 (Fusion).
+ARCH_OVERRIDES = ["model.attention.enable=false", "tpu.fast_consensus=true"]
+RESNET_OVERRIDES = ["model.arch=resnet", "model.resnet.depth=101"] + ARCH_OVERRIDES
+VGG_OVERRIDES = ["model.arch=vgg", "model.vgg.type=16"] + ARCH_OVERRIDES
+ARCH_TEST_VIDEOS, ARCH_TEST_ACTIONS = 4, 5  # clips per annotation file: 20
+ARCH_TRAIN_BATCHES = [12] * 6  # two warm-ups, four timed steps
+
+
+def check_logits(name: str, out: dict, b: int, failures: list) -> None:
+    for key, classes in (("verb", CLASS_HEADS[0]), ("noun", CLASS_HEADS[1])):
+        arr = out.get(key)
+        if arr is None or arr.shape != (b, classes) or not np.isfinite(arr).all():
+            failures.append(f"{name}: {key} {None if arr is None else arr.shape} != "
+                            f"{(b, classes)} or not finite")
+
+
+def arch_serving(name: str, overrides: list, buckets: tuple, card: str, failures: list):
+    """One tower family served (seeded weights, buckets ``buckets``): a
+    request at each bucket, kernels' launches counted from 0 over them;
+    the largest bucket's logits against the same weights in float32 with
+    the kernels off and in bf16 with them off (both within the drift
+    bound); latency, peak memory and a device profile. Returns (the model,
+    its state dict, the launches)."""
+    cfg = load_config(overrides=overrides)
+    served = ServingModel(cfg, None, device="cuda", batch_buckets=buckets)
+    state = served.model.state_dict()
+    batches = {b: served.example_batch(b, seed=70 + b) for b in buckets}
+    kernels.reset_launch_counts()
+    outs = {b: served.predict(batch) for b, batch in batches.items()}
+    launches = {k: fn.launches for k, fn in kernels.WRAPPERS.items()}
+    for b, out in outs.items():
+        check_logits(f"{name} b={b}", out, b, failures)
+    top = buckets[-1]
+    refs = {}
+    for ref, over in (("fp32_kernels_off", ["tpu.compute_dtype=float32", "tpu.use_pallas=false"]),
+                      ("bf16_kernels_off", ["tpu.use_pallas=false"])):
+        model = ServingModel(load_config(overrides=overrides + over), state, device="cuda",
+                             batch_buckets=(top,))
+        refs[ref] = outputs_rel_rmse(outs[top], model.predict(batches[top]))
+        del model
+        torch.cuda.empty_cache()
+    result = {"phase": f"{name}_serve", "gpu": card, "overrides": overrides,
+              "buckets": list(buckets), "launches": launches,
+              "rel_rmse_vs": refs, "rel_rmse_bound": DRIFT_REL_RMSE}
+    for ref, errs in refs.items():
+        if any(not e < DRIFT_REL_RMSE for e in errs.values()):
+            failures.append(f"{name} serving vs {ref}: rel-RMSE {errs} >= {DRIFT_REL_RMSE}")
+    if launches["consensus_heads"] < len(buckets):
+        failures.append(f"{name} serving: consensus_heads launched "
+                        f"{launches['consensus_heads']} times for {len(buckets)} requests")
+    result["latency"] = {f"b{b}": bench(served, 20 if b == 1 else 10, b) for b in buckets}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served.predict(batches[top])
+    result["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    result[f"profile_b{top}"] = device_profile(lambda: served.predict(batches[top]))
+    emit(result)
+    return served, state, launches
+
+
+def arch_evaluation(card: str, failures: list) -> dict:
+    """ResNet-101 through the port's main in test mode on the smoke's Flow
+    (.npz) + Audio (WAV) fixture (RGB off: no JPEG decoder on the card's
+    machine), from a seeded {"model": state_dict} .pth, 10-crop, 25
+    segments, the challenge JSON of a labelled and an unlabelled file; once
+    with the kernels on (consensus_heads) and once off; both JSONs' scores
+    within the drift bound. Returns the launches of the kernels-on run."""
+    root = tempfile.mkdtemp(prefix=".smoke_fixture_arch_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        write_test_fixture(root, videos=ARCH_TEST_VIDEOS, actions=ARCH_TEST_ACTIONS,
+                           frames=120 * ARCH_TEST_ACTIONS, seed=6)
+        model_over = RESNET_OVERRIDES + ["data.rgb.enable=false", "model.pretrained=false"]
+        cfg = load_config(overrides=model_over)
+        pth = os.path.join(root, "weights.pth")
+        torch.save({"model": build_model(cfg, get_modality(cfg), device="cuda",
+                                         seed=11).state_dict()}, pth)
+        torch.cuda.empty_cache()
+        overrides = model_over + ["train.enable=false",
+            "test.enable=true", f"data_dir={root}", f"out_dir={root}/out", "exp_name=arch",
+            "data.flow.read_flow_pickle=true", "data.flow.dir_prefix=flow", "test.ten_crop=true",
+            "test.save_results=true", f"test.pre_trained={pth}",
+            "test.annotation_file=[annotations/labelled.csv, annotations/unlabelled.csv]",
+            "test.results_file=[labelled.json, unlabelled.json]",
+            f"test.vid_list={root}/split.txt", f"test.batch_size={TEST_BATCH}",
+        ]
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        results = port_main.main(overrides)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {k: fn.launches for k, fn in kernels.WRAPPERS.items()}
+        plain_over = overrides + ["tpu.use_pallas=false", "exp_name=arch_plain",
+                                  "test.results_file=[plain_labelled.json, plain_unlabelled.json]"]
+        kernels.reset_launch_counts()
+        port_main.main(plain_over)
+        plain_launches = sum(fn.launches for fn in kernels.WRAPPERS.values())
+        uids = [r["uid"] for r in load_annotations(os.path.join(root, "annotations",
+                                                                "labelled.csv"))]
+        files = {}
+        for name in ("labelled.json", "unlabelled.json"):
+            got = read_scores(os.path.join(root, "out", "inferences", name))
+            want = read_scores(os.path.join(root, "out", "inferences", "plain_" + name))
+            complete = sorted(got) == sorted(uids) == sorted(want) and all(
+                np.isfinite(v).all() and np.isfinite(n).all() for v, n in got.values())
+            files[name] = {"uids": len(got), "complete": complete}
+            if not complete:
+                failures.append(f"arch test path: {name} lacks uids or finite scores")
+                continue
+            for h, head in enumerate(("verb", "noun")):
+                drift = rel_rmse(np.stack([got[u][h] for u in uids]),
+                                 np.stack([want[u][h] for u in uids]))
+                files[name][f"{head}_rel_rmse_vs_kernels_off"] = drift
+                if not drift < DRIFT_REL_RMSE:
+                    failures.append(f"arch test path {name} {head}: rel-RMSE {drift} >= "
+                                    f"{DRIFT_REL_RMSE}")
+        labelled = results[0] if results else None
+        if labelled is None or not np.isfinite(labelled[0]["total"]):
+            failures.append(f"arch test path: labelled results {labelled}")
+        if launches["consensus_heads"] < 1 or plain_launches:
+            failures.append(f"arch test path: consensus_heads launches "
+                            f"{launches['consensus_heads']}, kernels off {plain_launches}")
+        throughput = run_log_lines(os.path.join(root, "out", "log", "arch"),
+                                   "Inference throughput")
+        emit({"phase": "resnet101_test_path", "gpu": card, "clips_per_file": len(uids),
+              "files": files, "wall_s": wall, "launches": launches,
+              "kernels_off_launches": plain_launches,
+              "test_loss": labelled[0] if labelled else None, "throughput_log": throughput})
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def arch_training(card: str, failures: list) -> dict:
+    """ResNet-101 train steps of the flagship recipe (12 x 3 segments, SGD
+    momentum 0.9 at lr 1e-2, partialbn, which these towers ignore, clip 20,
+    bf16, seeded weights) on in-memory batches: two warm-ups, then timed
+    steps; every loss finite, no parameter frozen."""
+    cfg = load_config(overrides=RESNET_OVERRIDES + ["model.pretrained=false"])
+    model = build_model(cfg, get_modality(cfg), device="cuda")
+    state = create_train_state(cfg, model)
+    state.optimizer.set_learning_rate(lr_at_epoch(cfg, 0))
+    step = make_train_step(cfg)
+    loader = SmokeLoader(cfg, ARCH_TRAIN_BATCHES, int(cfg.train.num_segments),
+                         int(cfg.data.train_crop_size), seed=3)
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch, targets, meta in loader:
+        start = time.perf_counter()
+        state, loss, _ = step(state, batch, targets, 0, meta["batch_size"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        losses.append(float(loss["total"]))
+    timed = sorted(times[2:])
+    result = {"phase": "resnet101_train_step", "gpu": card, "batch": ARCH_TRAIN_BATCHES[0],
+              "segments": int(cfg.train.num_segments), "losses": losses,
+              "step_ms_p50": timed[len(timed) // 2], "step_ms": times,
+              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "frozen": len(state.optimizer.frozen_names),
+              "trainable": len(state.optimizer.trainable)}
+    emit(result)
+    if not all(np.isfinite(losses)) or state.step != len(ARCH_TRAIN_BATCHES):
+        failures.append(f"resnet101 train: steps {state.step}, losses {losses}")
+    if state.optimizer.frozen_names:
+        failures.append(f"resnet101 train: partialbn froze {len(state.optimizer.frozen_names)} "
+                        "parameters; these towers ignore it")
+    del state, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def arch_bundle(state: dict, card: str, failures: list) -> dict:
+    """The ResNet-101 TBN exported as a bf16 bundle at batch 1 and served:
+    equal to the eager model on the bundle's own weights within
+    EXPORT_REL_RMSE; the program holds the consensus_heads op node."""
+    from attention_based_tbn_tpu_torch.tools.export import export_inference
+    from attention_based_tbn_tpu_torch.tools.serve import BundleModel
+
+    root = tempfile.mkdtemp(prefix=".smoke_fixture_arch_export_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        cfg = load_config(overrides=RESNET_OVERRIDES)
+        modality = get_modality(cfg)
+        export_inference(cfg, modality, state=state, out_dir=root, batch_size=1,
+                         serving_dtype="bfloat16", device="cuda")
+        manifest = read_json(os.path.join(root, "manifest.json"))
+        own = {k: v.float() if v.dtype == torch.bfloat16 else v
+               for k, v in torch.load(os.path.join(root, "params.pt"), map_location="cuda",
+                                      weights_only=True).items()}
+        eager = ServingModel(cfg, own, device="cuda", batch_buckets=(1,))
+        bundle = BundleModel(root, device="cuda")
+        batch = eager.example_batch(1, seed=80)
+        kernels.reset_launch_counts()
+        got = bundle.predict(batch)
+        launches = {k: fn.launches for k, fn in kernels.WRAPPERS.items()}
+        errs = outputs_rel_rmse(got, eager.predict(batch))
+        ops = manifest["kernel_ops"]["module.pt2"]
+        result = {"phase": "resnet101_bundle", "gpu": card, "serving_dtype": "bfloat16",
+                  "export_seconds": manifest["export_seconds"], "kernel_ops": ops,
+                  "bytes": {f: os.path.getsize(os.path.join(root, f))
+                            for f in sorted(os.listdir(root))},
+                  "rel_rmse_vs_eager": errs, "rel_rmse_bound": EXPORT_REL_RMSE,
+                  "launches": launches, "latency_b1": bench(bundle, 20, 1)}
+        emit(result)
+        check_logits("resnet101 bundle", got, 1, failures)
+        if any(not e <= EXPORT_REL_RMSE for e in errs.values()):
+            failures.append(f"resnet101 bundle vs eager: {errs}")
+        if not ops.get("tbn::consensus_heads") or launches["consensus_heads"] < 1:
+            failures.append(f"resnet101 bundle: consensus_heads ops {ops}, launches {launches}")
+        del eager, bundle
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def arch_path(card: str, failures: list) -> dict:
+    """The ResNet and VGG tower families at full width: ResNet-101 served,
+    evaluated through main, trained and exported; VGG-16 served. Each part
+    counts the kernels' launches from 0; returns them per part."""
+    start = time.perf_counter()
+    served, state, serve_launches = arch_serving("resnet101", RESNET_OVERRIDES, (1, 10), card,
+                                                 failures)
+    del served
+    torch.cuda.empty_cache()
+    launches = {"resnet101_serve": serve_launches,
+                "resnet101_test": arch_evaluation(card, failures)}
+    arch_training(card, failures)
+    launches["resnet101_bundle"] = arch_bundle(state, card, failures)
+    del state
+    torch.cuda.empty_cache()
+    served, _, launches["vgg16_serve"] = arch_serving("vgg16", VGG_OVERRIDES, (1, 2), card,
+                                                      failures)
+    del served
+    torch.cuda.empty_cache()
+    emit({"phase": "arch_path", "gpu": card, "wall_s": time.perf_counter() - start,
+          "consensus_heads_launches": {k: v["consensus_heads"] for k, v in launches.items()}})
+    return launches
+
+
 def main(argv=None) -> int:
     global _LOG
     parser = argparse.ArgumentParser(description=__doc__,
@@ -2087,6 +2352,10 @@ def main(argv=None) -> int:
     # the serving export: bundles with the kernels as op nodes, served
     export_launches = export_path(card, failures)
     emit({"phase": "launches", "path": "export", **export_launches})
+
+    # the ResNet and VGG towers: consensus_heads at F = 512 on each part
+    for part, counts in arch_path(card, failures).items():
+        emit({"phase": "launches", "path": f"arch/{part}", **counts})
     # launches: this slice's main path, the export's bundles serving, for
     # the kernels it runs; conv3x3 runs on the probe's path only
     launches = {name: export_launches[name] for name in EXPORT_OPS}

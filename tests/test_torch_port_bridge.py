@@ -108,5 +108,5 @@ def test_seeded_init_is_deterministic_and_seed_dependent():
 def test_unported_arch_is_refused():
     _, jcfg = configs(["data.flow.enable=false"])
     jspec, variables = jax_variables(jcfg)
-    with pytest.raises(ValueError, match="not ported"):
-        jax_to_state_dict(variables, type("Spec", (), {"arch": "resnet"})())
+    with pytest.raises(ValueError, match="Unknown arch"):
+        jax_to_state_dict(variables, type("Spec", (), {"arch": "alexnet"})())

@@ -89,7 +89,9 @@ def test_training_forward_is_refused():
 
 
 def test_spec_validation():
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="Unknown arch"):
+        TBNSpec(arch="alexnet").validate()
+    with pytest.raises(ValueError, match="audio attention requires arch=bninception"):
         TBNSpec(arch="resnet").validate()
     with pytest.raises(ValueError, match="visual query"):
         TBNSpec(modality=("Audio",)).validate()
