@@ -1,6 +1,9 @@
 """Host audio IO: WAV loading and window extraction.
 
-Port of the JAX package's ``data/audio.py`` with its pure-Python reader.
+Port of the JAX package's ``data/audio.py``. A WAV file is read by the
+port's native library (``native.read_wav``: linear resampling, as the JAX
+package's native reader) unless ``use_native`` is off (``tpu.native_io=
+false``), which selects the Python reader (scipy's polyphase resampling).
 The reference loads the whole untrimmed video's audio with librosa for
 every sample (core/dataset/dataset.py:372-419) and cuts an
 ``audio_length``-second window centred on the sampled frame
@@ -18,6 +21,8 @@ import wave
 
 import numpy as np
 from scipy import signal as scipy_signal
+
+from .. import native
 
 
 def read_wav(path: str, target_sr: int = 24000, mono: bool = True) -> np.ndarray:
@@ -49,12 +54,24 @@ def read_wav(path: str, target_sr: int = 24000, mono: bool = True) -> np.ndarray
 
 
 def read_audio_sample(root_dir: str, audio_prefix: str, vid_id: str, file_ext: str = "wav",
-                      sampling_rate: int = 24000, read_pickle: bool = False) -> np.ndarray:
-    """The full untrimmed waveform of a video (a WAV file or an .npy cache)."""
+                      sampling_rate: int = 24000, read_pickle: bool = False,
+                      use_native: bool = True) -> np.ndarray:
+    """The full untrimmed waveform of a video (a WAV file or an .npy cache).
+
+    ``use_native`` is the ``tpu.native_io`` gate: the native reader, whose
+    library must build (``native.NativeBuildError`` otherwise); a file it
+    refuses (not PCM, no ``fmt`` chunk) goes to the Python reader, as in the
+    JAX package. Off, the Python reader alone."""
     if read_pickle:
         return np.load(os.path.join(root_dir, audio_prefix, f"{vid_id}.npy")).astype(np.float32)
-    return read_wav(os.path.join(root_dir, audio_prefix, f"{vid_id}.{file_ext}"),
-                    target_sr=sampling_rate)
+    path = os.path.join(root_dir, audio_prefix, f"{vid_id}.{file_ext}")
+    if use_native:
+        library = native.ensure_built()
+        try:
+            return library.read_wav(path, target_sr=sampling_rate)
+        except IOError:
+            pass  # not PCM or malformed: the Python reader decides
+    return read_wav(path, target_sr=sampling_rate)
 
 
 def extract_window(sample: np.ndarray, frame_idx: int, vid_fps: float, audio_length: float,

@@ -9,10 +9,12 @@ runs on the device), attention priors, and the geometric transforms
 (transforms.py), in train, val and test mode, with 10-crop in test mode
 under ``test.ten_crop``.
 
-Decoding JPEG needs cv2 (opencv); without it a JPEG read raises and names
-the missing decoder. ``.npz`` flow stacks and WAV audio need neither.
-``tpu.native_io`` parses and changes nothing yet: the port's own native
-JPEG binding (the JAX package's ``native/tbn_io.cpp``) is still to come.
+Under ``tpu.native_io`` (the default) RGB frames, Flow JPEG pairs and WAV
+audio are decoded by the port's native library (``native/``), where the JAX
+package decodes them natively (its ``dataset.py:60-66``, ``:117``,
+``:128-150``); a library that cannot build raises and names what is
+missing. ``tpu.native_io=false`` selects cv2 for JPEG (without cv2 a JPEG
+read raises and names the missing decoder) and the Python WAV reader.
 
 Outputs per sample:
   RGB      (N, crop, crop, 3)  uint8 (N x 10 rows under 10-crop)
@@ -30,6 +32,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..ops.spectrogram import log_power_stft_np
 from . import transforms as T
 from .audio import AudioCache, extract_window, read_audio_sample
@@ -43,9 +46,9 @@ def _cv2():
         import cv2
     except ImportError as exc:
         raise ImportError(
-            "decoding JPEG frames needs cv2 (opencv), which is not installed; use "
-            ".npz flow stacks (data.flow.read_flow_pickle=true) and WAV audio, or "
-            "install opencv"
+            "decoding JPEG frames under tpu.native_io=false needs cv2 (opencv), which is "
+            "not installed; use the native decoder (tpu.native_io=true), .npz flow stacks "
+            "(data.flow.read_flow_pickle=true), or install opencv"
         ) from exc
     return cv2
 
@@ -62,6 +65,9 @@ class VideoDataset:
         self.flow_win = int(cfg.data.flow.win_length)
         self.use_attention = bool(cfg.model.attention.enable)
         self.attn_win = attention_window_size(cfg.data.audio.audio_length)
+        # the native decoder, or None under tpu.native_io=false (cv2 and the
+        # Python WAV reader); a library that cannot build raises here
+        self.native = native.ensure_built() if cfg.get_path("tpu.native_io", True) else None
 
         action_ids = None
         if action_list:
@@ -90,7 +96,8 @@ class VideoDataset:
         audio = self.cfg.data.audio
         return read_audio_sample(self.root_dir, audio.dir_prefix, vid_id,
                                  file_ext=audio.file_ext, sampling_rate=int(audio.sampling_rate),
-                                 read_pickle=bool(audio.read_audio_pickle))
+                                 read_pickle=bool(audio.read_audio_pickle),
+                                 use_native=self.native is not None)
 
     def _rgb_path(self, vid_id: str, frame_idx: int) -> str:
         rgb = self.cfg.data.rgb
@@ -99,6 +106,8 @@ class VideoDataset:
 
     def _read_rgb(self, vid_id: str, frame_idx: int) -> np.ndarray:
         path = self._rgb_path(vid_id, frame_idx)
+        if self.native is not None:
+            return self.native.decode_jpeg_file(path)  # BGR, as cv2
         img = _cv2().imread(path)  # BGR, like the reference (dataset.py:305-311)
         if img is None:
             raise IOError(f"Problem reading file {path}")
@@ -110,6 +119,9 @@ class VideoDataset:
         maps = []
         for axis in ("x", "y"):
             path = os.path.join(base, f"{axis}_{frame_idx:010d}.{flow.file_ext}")
+            if self.native is not None:
+                maps.append(self.native.decode_jpeg_file(path, grayscale=True))
+                continue
             img = _cv2().imread(path, 0)
             if img is None:
                 raise IOError(f"Problem reading file {path}")

@@ -7,7 +7,13 @@
     python3 chip_smoke.py --quick   # build and kernel checks only (no ok line)
 
 Builds the hand-written kernels from ``attention_based_tbn_tpu_torch/ops/csrc``
-(one ``nvcc`` per source, all at once), counts the wgmma (HGMMA)
+(one ``nvcc`` per source, all at once) and, beside them, the port's native IO
+library (``native/``, g++, with the port's own JPEG decoder), reports the
+host's decoders (libjpeg's header and library, cv2, nvJPEG's header, g++:
+the env phase), holds the native library
+to the checksums recorded with ``native/testdata`` (cv2's decodes of six
+JPEGs, the JAX package's read of a 48 kHz WAV) and times its decode (the
+native_io phase), counts the wgmma (HGMMA)
 instructions in each library's SASS, holds Hopper's wgmma against
 ``torch.matmul`` (one m64n64k16 product without swizzle, a K = 64 one with
 the 128-byte swizzle the kernels use, and a K = 64 one of the register-A
@@ -33,13 +39,16 @@ after:
   kernels off; latency, device profile and per-layer times; then one b=10
   request with ``tpu.pool_impl=pallas`` and one with ``tpu.fused_stem`` +
   ``tpu.fast_consensus`` against the default config's;
-* evaluation: the port's ``main`` in test mode at full width on a Flow
-  (.npz stacks) + Audio (WAV) fixture written here with numpy, 10-crop, the
-  fused stem, fast consensus and the challenge JSON, over a labelled and an
-  unlabelled annotation file (100 clips each), from a seeded ``{"model":
+* evaluation: the port's ``main`` in test mode at full width, tri-modal,
+  on RGB JPEG frames (256 x 456), Flow ``.npz`` stacks and WAV audio
+  written by the port's ``data/synthetic`` and
+  ``preprocessing/create_flow_pickle``, 10-crop, the fused stem on all
+  three towers, fast consensus and the challenge JSON, over a labelled and
+  an unlabelled annotation file (40 clips each), from a seeded ``{"model":
   state_dict}`` .pth; the same run with every kernel off must give the same
-  uids and scores within the bf16 drift bound; clips/s from the run logs,
-  and a device profile of one more sweep;
+  uids and scores within the bf16 drift bound, and so must the same run
+  with ``tpu.native_io=false`` (cv2 and the Python WAV reader); clips/s of
+  the three from the run logs, and a device profile of one more sweep;
 * training: the flagship recipe (batch 12 x 3 segments, SGD momentum 0.9
   at lr 1e-2, partialbn, clip 20, dropout 0.5, bf16, ``tpu.pool_impl=
   pallas``, seeded weights: ``model.pretrained=false``) through
@@ -48,9 +57,10 @@ after:
   clips x 25 segments; step time, memory and a device profile of one step;
   and one float32 step with the pool kernel against the same step with the
   plain pool;
-* the training entry point: the port's ``main`` in train mode on a Flow +
-  Audio fixture (41 training clips: 3 batches of 12 and a ragged one of 5;
-  4 validation clips at 25 segments) with ``model.pretrained`` towers from
+* the training entry point: the port's ``main`` in train mode on a
+  tri-modal fixture (RGB JPEG frames, Flow JPEG pairs, WAV audio, by the
+  port's writers; 40 training clips: 3 batches of 12 and a ragged one of 4;
+  5 validation clips at 25 segments) with ``model.pretrained`` towers from
   seeded pretrainedmodels-layout files (the Audio conv1 adapted from 3
   channels), 2 epochs with validation and the best checkpoint; ``main``
   again to resume 1 epoch from the ``.pth`` (the log must continue from
@@ -90,7 +100,9 @@ no CUDA device is present or any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
+import hashlib
 import io
 import json
 import logging
@@ -109,13 +121,16 @@ import numpy as np
 import torch
 
 from attention_based_tbn_tpu_torch import main as port_main
+from attention_based_tbn_tpu_torch import native
 from attention_based_tbn_tpu_torch.config import load_config
+from attention_based_tbn_tpu_torch.data import synthetic
 from attention_based_tbn_tpu_torch.data.records import load_annotations
 from attention_based_tbn_tpu_torch.models.attention import PE_CHANNELS, positional_encoding_table
 from attention_based_tbn_tpu_torch.models.bn_inception import BN_INCEPTION_BLOCKS, BNInception
 from attention_based_tbn_tpu_torch.models.builder import build_model
 from attention_based_tbn_tpu_torch.ops import build, kernels
 from attention_based_tbn_tpu_torch.parallel.optim import lr_at_epoch
+from attention_based_tbn_tpu_torch.preprocessing import create_flow_pickle
 from attention_based_tbn_tpu_torch.parallel.train_step import (
     create_train_state, make_eval_step, make_train_step,
 )
@@ -186,12 +201,20 @@ CONV3X3_CASES = (
 )
 CLASS_HEADS = (125, 352)  # verb, noun
 FUSION = 512
-# The evaluation path: 2 clips x 25 segments per batch, Flow 10-cropped;
-# videos x actions clips in each of its two annotation files (100: cut from
-# 200 to keep the whole smoke, arch path included, near half its limit).
+# The evaluation path: 2 clips x 25 segments per batch, RGB and Flow
+# 10-cropped; videos x actions clips in each of its two annotation files
+# (40: cut from 200, then 100, to keep the whole smoke, RGB decode and the
+# fixture's JPEGs included, near half its limit), each
+# action spanning TEST_SPAN frames of its video.
 TEST_BATCH = 2
-TEST_VIDEOS, TEST_ACTIONS = 10, 10
-TEST_STEMS = (("Flow", 500), ("Audio", 50))  # (modality, rows) of one forward's stems
+TEST_VIDEOS, TEST_ACTIONS, TEST_SPAN = 8, 5, 12
+TEST_STEMS = (("RGB", 500), ("Flow", 500), ("Audio", 50))  # (modality, rows) of one forward's stems
+# Epic-Kitchens-55's frame size (H, W): the fixtures' RGB frames and Flow maps
+EK55_FRAME = (256, 456)
+UNLABELLED_KEYS = ["uid", "participant_id", "video_id", "start_timestamp", "stop_timestamp",
+                   "start_frame", "stop_frame"]
+# native_io: the committed JPEGs and WAV, and their recorded checksums
+NATIVE_TESTDATA = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "testdata")
 SERVE_STEMS = tuple((m, ROWS[-1]) for m in STEM_INPUTS)  # a b=10 served request's
 CONSENSUS_SHAPES = ((10, ROWS[0]), (10, ROWS[-1]), (TEST_BATCH, 10 * ROWS[0]))  # (B, N)
 # More consensus_heads cases, (B, N, F, heads, offset): one segment row
@@ -228,9 +251,14 @@ TRAIN_OVERRIDES = ["model.pretrained=false", "tpu.pool_impl=pallas"]
 TRAIN_BATCHES = [12] * 6 + [7]  # a single-card loader does not pad: the last is ragged
 VAL_BATCHES = [2, 2]
 # The training entry point (trainer_path): the port's main in train mode on
-# a Flow + Audio fixture, 3 full batches of 12 clips and a ragged one of 5,
-# validated on 4 clips at 25 segments; pretrained towers from seeded files.
-TRAINER_TRAIN_CLIPS, TRAINER_VAL_CLIPS = 3 * 12 + 5, 4
+# a tri-modal fixture (RGB JPEG frames, Flow JPEG pairs, WAV audio) of
+# TRAINER_VIDEOS videos of TRAINER_ACTIONS clips (TEST_SPAN frames each):
+# the first TRAINER_TRAIN_VIDEOS train, 3 full batches of 12 clips and a
+# ragged one of 4, the last validates, 5 clips at 25 segments; pretrained
+# towers from seeded files.
+TRAINER_VIDEOS, TRAINER_TRAIN_VIDEOS, TRAINER_ACTIONS = 9, 8, 5
+TRAINER_TRAIN_CLIPS = TRAINER_TRAIN_VIDEOS * TRAINER_ACTIONS
+TRAINER_VAL_CLIPS = (TRAINER_VIDEOS - TRAINER_TRAIN_VIDEOS) * TRAINER_ACTIONS
 TRAINER_KERNELS = ("max_pool", "pe_block", "mha", "fused_stem", "consensus_heads")
 # One float32 step (TF32 off, dropout 0, deterministic cuDNN) with the pool
 # kernel vs the plain pool: the pools are exact, so any gap is cuDNN's
@@ -254,6 +282,48 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def decoder_report() -> dict:
+    """What this machine offers to decode JPEG and to build the port's
+    native IO library: libjpeg's header (with ``JPEG_LIB_VERSION``) and
+    shared libraries, cv2 (imported, and decoding a JPEG it encoded),
+    nvJPEG's header and g++."""
+    prefixes = ["/usr/include", "/usr/local/include", os.path.join(sys.prefix, "include")]
+    prefixes += [os.path.join("/usr/include", d) for d in ("x86_64-linux-gnu",
+                                                         "aarch64-linux-gnu")]
+    headers = [p for d in prefixes for p in [os.path.join(d, "jpeglib.h")] if os.path.isfile(p)]
+    version = None
+    for d in prefixes:
+        for name in ("jconfig.h", "jpeglib.h"):
+            path = os.path.join(d, name)
+            if version is None and os.path.isfile(path):
+                with open(path, errors="replace") as fh:
+                    for line in fh:
+                        if line.startswith("#define JPEG_LIB_VERSION"):
+                            version = line.split()[2]
+                            break
+    libs = []
+    for d in ("/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/lib", "/usr/local/lib",
+              "/lib/x86_64-linux-gnu", os.path.join(sys.prefix, "lib")):
+        if os.path.isdir(d):
+            libs += sorted(os.path.join(d, f) for f in os.listdir(d) if f.startswith("libjpeg.so"))
+    report = {"jpeglib_h": headers, "jpeg_lib_version": version, "libjpeg_so": libs,
+              "nvjpeg_h": [p for p in ("/usr/local/cuda/include/nvjpeg.h",)
+                           if os.path.isfile(p)],
+              "gxx": shutil.which("g++"), "cv2": None, "cv2_imread_jpeg": False}
+    try:
+        import cv2
+        report["cv2"] = cv2.__version__
+        ok, data = cv2.imencode(".jpg", np.full((16, 16, 3), 128, np.uint8))
+        with tempfile.NamedTemporaryFile(suffix=".jpg") as fh:
+            fh.write(data.tobytes())
+            fh.flush()
+            img = cv2.imread(fh.name)
+        report["cv2_imread_jpeg"] = bool(ok and img is not None and img.shape == (16, 16, 3))
+    except ImportError as exc:
+        report["cv2_error"] = str(exc)
+    return report
 
 
 def bound(bytes_moved: float, ops: float, dtype) -> tuple:
@@ -1448,6 +1518,112 @@ def write_test_fixture(root: str, videos: int, actions: int, frames: int, seed: 
         fh.write("\n".join(names) + "\n")
 
 
+def write_trimodal_fixture(root: str, videos: int, actions: int, frames: int, seed: int,
+                           flow_pickle: bool) -> dict:
+    """A tri-modal Epic-Kitchens tree from the port's own writers: RGB JPEG
+    frames and Flow JPEG pairs at EK55_FRAME and a 24 kHz WAV per video, by
+    ``data/synthetic.generate`` (seeded content; labels drawn over the
+    flagship's 125 verbs and 352 nouns; JPEGs by cv2.imwrite); with
+    ``flow_pickle``, the Flow pairs also as ``.npz`` stacks under
+    ``flow_pickle/`` by ``preprocessing/create_flow_pickle`` (win 5, as the
+    JAX package's preprocessing writes them). The labelled CSV is
+    ``annotations/labelled.csv``, an unlabelled copy ``unlabelled.csv``,
+    the split list ``split.txt``. Returns the seconds each writer took."""
+    names = [f"P{v + 1:02d}_01" for v in range(videos)]
+    start = time.perf_counter()
+    synthetic.generate(root, videos=names, frames_per_video=frames, actions_per_video=actions,
+                       image_hw=EK55_FRAME, seed=seed)
+    timing = {"generate_s": time.perf_counter() - start}
+    if flow_pickle:
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            create_flow_pickle.main(["--in_dir", os.path.join(root, "links"), "--out_dir",
+                                     os.path.join(root, "flow_pickle"), "--win_length", "5",
+                                     "--workers", "8"])
+        timing["flow_pickle_s"] = time.perf_counter() - start
+        timing["flow_pickle_log"] = log.getvalue().strip()
+    ann = os.path.join(root, "annotations")
+    os.replace(os.path.join(ann, "epic_train_val.csv"), os.path.join(ann, "labelled.csv"))
+    with open(os.path.join(ann, "labelled.csv"), newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    with open(os.path.join(ann, "unlabelled.csv"), "w", newline="") as fh:
+        writer = csv.DictWriter(fh, UNLABELLED_KEYS, extrasaction="ignore")
+        writer.writeheader()
+        writer.writerows(rows)
+    os.replace(os.path.join(root, "train_split.txt"), os.path.join(root, "split.txt"))
+    return timing
+
+
+def sha256(array: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def native_io_check(card: str, failures: list) -> dict:
+    """The port's native IO library on this host: each committed JPEG
+    (``native/testdata``: 256 x 456 RGB at 4:2:0, 4:4:4 and with restart
+    markers, two gray Flow maps, an odd-sized 4:2:2 frame) decoded to BGR
+    and gray, held to the SHA-256 of cv2's decodes recorded with the files
+    (and this host's cv2 beside it, reported); the 48 kHz WAV read at 24 kHz,
+    held to the checksum of the JAX package's reader. Then decode rates on
+    the 4:2:0 frame: one thread, ``decode_batch`` (decode + centre crop
+    224) on 1 and 8 threads, cv2.imread; and the WAV's read time."""
+    lib = native.ensure_built()
+    record = read_json(os.path.join(NATIVE_TESTDATA, "checksums.json"))
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    files = {}
+    for name, want in sorted(record["jpeg"].items()):
+        path = os.path.join(NATIVE_TESTDATA, name)
+        bgr, gray = lib.decode_jpeg_file(path), lib.decode_jpeg_file(path, grayscale=True)
+        ok = (list(bgr.shape) == want["shape"] and sha256(bgr) == want["bgr_sha256"]
+              and sha256(gray) == want["gray_sha256"])
+        files[name] = {"ok": ok, "shape": list(bgr.shape)}
+        if cv2 is not None:
+            files[name]["host_cv2_equal"] = (sha256(cv2.imread(path)) == want["bgr_sha256"]
+                                             and sha256(cv2.imread(path, 0)) == want["gray_sha256"])
+        if not ok:
+            failures.append(f"native_io: {name} decodes off its recorded cv2 checksum")
+    wavs = {}
+    for name, want in sorted(record["wav"].items()):
+        path = os.path.join(NATIVE_TESTDATA, name)
+        samples = lib.read_wav(path, want["target_sr"])
+        ok = samples.shape == (want["samples"],) and sha256(samples) == want["float32_sha256"]
+        times = []
+        for _ in range(20):
+            start = time.perf_counter()
+            lib.read_wav(path, want["target_sr"])
+            times.append((time.perf_counter() - start) * 1e3)
+        wavs[name] = {"ok": ok, "samples": int(samples.shape[0]), "ms_p50": float(np.median(times))}
+        if not ok:
+            failures.append(f"native_io: {name} reads off the JAX reader's checksum")
+
+    frame = os.path.join(NATIVE_TESTDATA, "rgb_420_q95.jpg")
+
+    def rate(fn, frames):
+        fn()  # warm-up
+        start = time.perf_counter()
+        fn()
+        return frames / (time.perf_counter() - start)
+
+    n = 256
+    rates = {
+        "decode_1_thread": rate(lambda: [lib.decode_jpeg_file(frame) for _ in range(n)], n),
+        "decode_batch_1_thread": rate(
+            lambda: lib.decode_batch([frame] * n, 256, 224, num_threads=1), n),
+        "decode_batch_8_threads": rate(
+            lambda: lib.decode_batch([frame] * 4 * n, 256, 224, num_threads=8), 4 * n),
+    }
+    if cv2 is not None:
+        rates["cv2_imread_1_thread"] = rate(lambda: [cv2.imread(frame) for _ in range(n)], n)
+    result = {"phase": "native_io", "gpu": card, "library": lib.path,
+              "files": files, "wav": wavs, "frames_per_s": rates, "frame": "rgb_420_q95.jpg",
+              "host_cpus": os.cpu_count()}
+    emit(result)
+    return result
+
+
 def run_log_lines(run_root: str, needle: str) -> list:
     """The lines of the run logs under ``run_root`` that hold ``needle``."""
     found = []
@@ -1468,21 +1644,27 @@ def read_scores(path: str) -> dict:
 
 
 def evaluation_path(card: str, failures: list) -> dict:
-    """The evaluation entry point at full width: the port's main in test
-    mode on a Flow (.npz) + Audio (WAV) fixture with 10-crop, the fused
-    stem, fast consensus and the challenge JSON, from a seeded {"model":
-    state_dict} .pth; launch counts set to 0 just before main and read just
-    after. Then main again on the same fixture and .pth with the kernels off
-    (tpu.fused_stem=false, tpu.use_pallas=false): both challenge JSONs hold
-    the same uids and their scores stay within the bf16 drift bound.
-    Returns the launches."""
+    """The evaluation entry point at full width, tri-modal (the flagship
+    recipe: the RGB feature queries the audio sequence): the port's main in
+    test mode on RGB JPEG frames, Flow ``.npz`` stacks and WAV audio written
+    by the port's own writers (write_trimodal_fixture), with 10-crop, the
+    fused stem on all three towers, fast consensus and the challenge JSON,
+    from a seeded {"model": state_dict} .pth; launch counts set to 0 just
+    before main and read just after. Then main again on the same fixture and
+    .pth with the kernels off (tpu.fused_stem=false, tpu.use_pallas=false):
+    both challenge JSONs hold the same uids and their scores stay within
+    the bf16 drift bound. Then main with the kernels on and
+    tpu.native_io=false (cv2 and the Python WAV reader), whose scores must
+    agree too and whose clips/s stands beside the native decoder's. Returns
+    the launches."""
     root = tempfile.mkdtemp(prefix=".smoke_fixture_",
                             dir=os.path.dirname(os.path.abspath(__file__)))
     try:
         start = time.perf_counter()
-        write_test_fixture(root, videos=TEST_VIDEOS, actions=TEST_ACTIONS,
-                           frames=120 * TEST_ACTIONS, seed=5)
-        model_over = ["data.rgb.enable=false", "model.pretrained=false"]
+        fixture_s = write_trimodal_fixture(root, videos=TEST_VIDEOS, actions=TEST_ACTIONS,
+                                           frames=TEST_SPAN * TEST_ACTIONS, seed=5,
+                                           flow_pickle=True)
+        model_over = ["model.pretrained=false"]
         cfg = load_config(overrides=model_over)
         model = build_model(cfg, get_modality(cfg), device="cuda", seed=11)
         pth = os.path.join(root, "weights.pth")
@@ -1493,7 +1675,7 @@ def evaluation_path(card: str, failures: list) -> dict:
         overrides = model_over + [
             "train.enable=false", "test.enable=true", f"data_dir={root}",
             f"out_dir={root}/out", "exp_name=smoke", "data.flow.read_flow_pickle=true",
-            "data.flow.dir_prefix=flow", "test.ten_crop=true", "test.save_results=true",
+            "data.flow.dir_prefix=flow_pickle", "test.ten_crop=true", "test.save_results=true",
             "tpu.fused_stem=true", "tpu.fast_consensus=true", f"test.pre_trained={pth}",
             "test.annotation_file=[annotations/labelled.csv, annotations/unlabelled.csv]",
             "test.results_file=[labelled.json, unlabelled.json]",
@@ -1511,6 +1693,10 @@ def evaluation_path(card: str, failures: list) -> dict:
         for name in ("fused_stem", "consensus_heads", "pe_block", "mha"):
             if launches[name] < 1:
                 failures.append(f"kernel {name} was not launched on the test path")
+        batches = 2 * -(-len(uids) // TEST_BATCH)  # both files
+        if launches["fused_stem"] != len(TEST_STEMS) * batches:
+            failures.append(f"test path: fused_stem launched {launches['fused_stem']} times, "
+                            f"not once per stem and batch ({len(TEST_STEMS)} x {batches})")
 
         # the same fixture and .pth with every kernel off
         plain_over = overrides + ["tpu.fused_stem=false", "tpu.use_pallas=false",
@@ -1524,9 +1710,25 @@ def evaluation_path(card: str, failures: list) -> dict:
         plain_throughput = run_log_lines(os.path.join(root, "out", "log", "plain"),
                                          "Inference throughput")
 
+        # the same run, kernels on, with tpu.native_io=false: RGB frames by
+        # cv2.imread and WAV by the Python reader, the JAX package's A/B
+        # switch; the loader's rate beside the native decoder's
+        cv2_over = overrides + ["tpu.native_io=false", "exp_name=cv2",
+                                "test.results_file=[cv2_labelled.json, cv2_unlabelled.json]"]
+        cv2_results = port_main.main(cv2_over)
+        torch.cuda.synchronize()
+        cv2_throughput = run_log_lines(os.path.join(root, "out", "log", "cv2"),
+                                       "Inference throughput")
+        if not cv2_results or not np.isfinite(cv2_results[0][0]["total"]):
+            failures.append(f"test path under tpu.native_io=false: results {cv2_results}")
+
         files = {}
         for name in ("labelled.json", "unlabelled.json"):
             got = read_scores(os.path.join(root, "out", "inferences", name))
+            decoded_by_cv2 = read_scores(os.path.join(root, "out", "inferences", "cv2_" + name))
+            if sorted(decoded_by_cv2) != sorted(got):
+                failures.append(f"test path under tpu.native_io=false: {name} lacks uids")
+                continue
             want = read_scores(os.path.join(root, "out", "inferences", "plain_" + name))
             complete = (sorted(got) == sorted(uids) == sorted(want) and all(
                 len(v) == 125 and len(n) == 352 and np.isfinite(v).all() and np.isfinite(n).all()
@@ -1542,6 +1744,14 @@ def evaluation_path(card: str, failures: list) -> dict:
                 if not drift < DRIFT_REL_RMSE:
                     failures.append(f"test path {name} {head}: rel-RMSE {drift} vs the "
                                     f"kernels-off run >= {DRIFT_REL_RMSE}")
+                # the native decoder and reader are bit-equal to cv2 and the
+                # Python reader at the fixture's 24 kHz
+                gap = rel_rmse(np.stack([got[u][h] for u in uids]),
+                               np.stack([decoded_by_cv2[u][h] for u in uids]))
+                files[name][f"{head}_rel_rmse_vs_native_io_off"] = gap
+                if not gap < DRIFT_REL_RMSE:
+                    failures.append(f"test path {name} {head}: rel-RMSE {gap} vs the "
+                                    f"tpu.native_io=false run >= {DRIFT_REL_RMSE}")
         labelled = results[0] if results else None
         loss_ok = labelled is not None and np.isfinite(labelled[0]["total"])
         if not loss_ok or results[1] is not None:
@@ -1552,17 +1762,21 @@ def evaluation_path(card: str, failures: list) -> dict:
                                 "test.results_file=[profiled.json]", "exp_name=profiled"]
         profile = device_profile(lambda: (port_main.main(profiled), torch.cuda.synchronize()))
         emit({"phase": "test_path", "gpu": card, "clips": len(uids), "files": files,
+              "modalities": get_modality(cfg), "fixture_s": fixture_s,
               "setup_s": setup_s, "wall_s": wall, "launches": launches,
               "test_loss": labelled[0] if labelled else None,
               "test_acc": labelled[1] if labelled else None,
               "kernels_off_test_loss": (plain_results[0][0]
                                         if plain_results and plain_results[0] else None),
-              "throughput_log": throughput, "kernels_off_throughput_log": plain_throughput})
+              "throughput_log": throughput, "kernels_off_throughput_log": plain_throughput,
+              "native_io_off_throughput_log": cv2_throughput})
         emit({"phase": "test_path_profile", "gpu": card, "clips": len(uids), **profile})
         for line in throughput:
             print(f"test path: {len(uids)} clips per file; {line.split(' : ')[-1]}", flush=True)
         for line in plain_throughput:
             print(f"test path, kernels off: {line.split(' : ')[-1]}", flush=True)
+        for line in cv2_throughput:
+            print(f"test path, tpu.native_io=false: {line.split(' : ')[-1]}", flush=True)
         print(f"test path: wall {wall:.1f} s for both files", flush=True)
         return launches
     finally:
@@ -1645,8 +1859,9 @@ def state_equal(state, other) -> dict:
 
 def trainer_path(card: str, failures: list) -> dict:
     """The training entry point at full width: the port's main in train
-    mode on a Flow (.npz) + Audio (WAV) fixture with pretrained towers from
-    seeded files, 2 epochs with validation and the best checkpoint; main
+    mode on a tri-modal fixture (RGB JPEG frames, Flow JPEG pairs in
+    Epic-Kitchens' own layout, WAV audio; write_trimodal_fixture) with
+    pretrained towers from seeded files, 2 epochs with validation and the best checkpoint; main
     again to resume 1 epoch from the written .pth; the .pth reloaded into a
     fresh train state (bit-equal to the trained one); main in test mode
     from it with the fused stem and fast consensus. Launch counts set to 0
@@ -1656,20 +1871,21 @@ def trainer_path(card: str, failures: list) -> dict:
                             dir=os.path.dirname(os.path.abspath(__file__)))
     try:
         start = time.perf_counter()
-        videos = TRAINER_TRAIN_CLIPS + TRAINER_VAL_CLIPS
-        write_test_fixture(root, videos=videos, actions=1, frames=120, seed=9)
-        names = [f"P{v + 1:02d}_01" for v in range(videos)]
-        for split, vids in (("train", names[:TRAINER_TRAIN_CLIPS]),
-                            ("val", names[TRAINER_TRAIN_CLIPS:])):
+        fixture_s = write_trimodal_fixture(root, videos=TRAINER_VIDEOS, actions=TRAINER_ACTIONS,
+                                           frames=TEST_SPAN * TRAINER_ACTIONS, seed=9,
+                                           flow_pickle=False)
+        names = [f"P{v + 1:02d}_01" for v in range(TRAINER_VIDEOS)]
+        for split, vids in (("train", names[:TRAINER_TRAIN_VIDEOS]),
+                            ("val", names[TRAINER_TRAIN_VIDEOS:])):
             with open(os.path.join(root, f"{split}_split.txt"), "w") as fh:
                 fh.write("\n".join(vids) + "\n")
         weight_files = write_pretrained(os.path.join(root, "weights"), seed=4)
         setup_s = time.perf_counter() - start
         overrides = [
-            "data.rgb.enable=false", "model.pretrained=true", f"model.weights_dir={root}/weights",
+            "model.pretrained=true", f"model.weights_dir={root}/weights",
             "tpu.pool_impl=pallas", "train.enable=true", "test.enable=false", "val.enable=true",
             "train.save_best=true", "train.epochs=2", f"data_dir={root}", f"out_dir={root}/out",
-            "exp_name=trainer", "data.flow.read_flow_pickle=true", "data.flow.dir_prefix=flow",
+            "exp_name=trainer", "data.flow.read_flow_pickle=false",
             "train.annotation_file=annotations/labelled.csv",
             f"train.vid_list={root}/train_split.txt", f"val.vid_list={root}/val_split.txt",
         ]
@@ -1748,7 +1964,8 @@ def trainer_path(card: str, failures: list) -> dict:
         step_lines = [line.split(" : ")[-1] for line in
                       run_log_lines(os.path.join(root, "out", "log", "trainer"), "s/step")]
         result = {
-            "phase": "trainer_path", "gpu": card, "setup_s": setup_s,
+            "phase": "trainer_path", "gpu": card, "setup_s": setup_s, "fixture_s": fixture_s,
+            "modalities": modality,
             "pretrained_files": weight_files, "train_clips": TRAINER_TRAIN_CLIPS,
             "val_clips": TRAINER_VAL_CLIPS, "trained": trained, "resumed": resumed,
             "reload_bit_equal": reload_equal, "checkpoint_bytes": os.path.getsize(stem + ".pth"),
@@ -2024,8 +2241,8 @@ def arch_serving(name: str, overrides: list, buckets: tuple, card: str, failures
 
 def arch_evaluation(card: str, failures: list) -> dict:
     """ResNet-101 through the port's main in test mode on the smoke's Flow
-    (.npz) + Audio (WAV) fixture (RGB off: no JPEG decoder on the card's
-    machine), from a seeded {"model": state_dict} .pth, 10-crop, 25
+    (.npz) + Audio (WAV) fixture (RGB off: the tri-modal evaluation is the
+    flagship's), from a seeded {"model": state_dict} .pth, 10-crop, 25
     segments, the challenge JSON of a labelled and an unlabelled file; once
     with the kernels on (consensus_heads) and once off; both JSONs' scores
     within the drift bound. Returns the launches of the kernels-on run."""
@@ -2221,11 +2438,28 @@ def main(argv=None) -> int:
     failures: list = []
     card = gpu_line()
     start = time.perf_counter()
+    native_build: dict = {}
+
+    def build_native():  # g++, beside the nvcc builds
+        began = time.perf_counter()
+        try:
+            native_build["compile_s"] = native.build()
+            native.load()
+        except native.NativeBuildError as exc:
+            native_build["error"] = str(exc)
+        native_build["build_s"] = time.perf_counter() - began
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     build_s = build.build()
+    native_thread.join()
+    if "error" in native_build:
+        failures.append(f"native IO library: {native_build['error']}")
     sass = sass_counts()
     emit({"phase": "env", "gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": time.perf_counter() - start,
-          "build_s_by_kernel": build_s, "sass_instructions": sass,
+          "build_s_by_kernel": build_s, "decoders": decoder_report(), "native_io": native_build,
+          "sass_instructions": sass,
           "ptxas": {n: [line.split("ptxas info    : ")[-1].strip()
                         for line in build.ptxas_report(n).splitlines()
                         if "Used" in line or "spill" in line or "wgmma" in line]
@@ -2275,6 +2509,8 @@ def main(argv=None) -> int:
             failures.append(f"consensus_heads {name}: kernels.py says {stated}, "
                             f"the library {built}")
 
+    if "error" not in native_build:
+        native_io_check(card, failures)
     check_wgmma(failures)
     main_case = check_kernels(failures)
     pool_records = check_max_pool(failures)

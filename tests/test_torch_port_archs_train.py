@@ -9,15 +9,18 @@ the port, against the JAX package where it has the same function:
   docstring says why): losses rtol 1e-5 at every step, the state after one
   step rtol 1e-3 / atol 1e-4, after three parameters rtol 5e-3 / atol 5e-4
   and BatchNorm statistics rtol 1e-2 / atol 2e-3;
+* the whole train step of a VGG-11 RGB + Audio TBN the same way, with the
+  towers' classifier dropout at 0 on both sides: the JAX package's TBN
+  fixes VGG's dropout at 0.5 (its models/vgg.py ``dropout_rate``), whose
+  noise the two frameworks cannot draw alike, so this test alone builds
+  JAX's TBN with its tower class patched to dropout 0 at run time (no JAX
+  file changes) and sets the port's towers' ``dropout_rate`` to 0;
 * the VGG-11 tower alone in training, with and without BatchNorm, live
   BatchNorm with a pad-row mask, against JAX's tower: the features, every
   parameter's gradient and the running statistics (rtol 1e-4, atol 1e-4
   times the largest value; a conv bias in front of live BatchNorm, whose
   gradient is 0, within 1e-5 of its kernel's largest gradient). The
-  whole-TBN VGG step is not held to JAX's: the JAX package's TBN fixes
-  VGG's dropout at 0.5, whose noise the two frameworks cannot draw alike;
-  the tower is compared with dropout 0 instead, and the port's dropout is
-  checked on its own. (ResNet's gradients are not compared one by one: a
+  port's dropout is checked on its own. (ResNet's gradients are not compared one by one: a
   ReLU whose input lies within the frameworks' 1e-5 forward difference of
   0 flips, and one flip moves a late BatchNorm bias's gradient by ~5%; its
   whole step is held to JAX's above, after the SGD update, as the
@@ -31,6 +34,7 @@ the port, against the JAX package where it has the same function:
   round trip, a resume from it), and in test mode with ``model.arch=vgg``.
 """
 
+import functools
 import json
 import logging
 import os
@@ -43,6 +47,7 @@ import jax
 import jax.numpy as jnp
 
 from attention_based_tbn_tpu.data import synthetic
+from attention_based_tbn_tpu.models import tbn as jax_tbn
 from attention_based_tbn_tpu.models.tbn import TBNModel as JaxTBNModel
 from attention_based_tbn_tpu.models.tbn import TBNSpec as JaxTBNSpec
 from attention_based_tbn_tpu.models.vgg import VGG as JaxVGG
@@ -72,6 +77,7 @@ STEP_OVERRIDES = RESNET18 + ["data.flow.enable=false", "model.fusion_dropout=0",
                              "data.train_crop_size=64"]
 B = 3
 STEPS = ((B - 1, 1), (B, 2), (B, 3))  # (true batch size, seed): a pad row first
+KEPT_STATES = (0, 2)  # the steps after which the states are compared
 
 
 def _targets(seed):
@@ -85,48 +91,90 @@ def _leaves(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _run_steps(overrides, vgg_dropout_zero=False):
+    """Three train steps of the same seeded TBN on both sides: losses after
+    each, the state (in the JAX layout) after the first and the last."""
     torch.set_num_threads(1)
-    cfg, jcfg = configs(STEP_OVERRIDES)
+    cfg, jcfg = configs(overrides)
     model = randomize(build_model(cfg, get_modality(cfg), device="cpu"))
+    if vgg_dropout_zero:
+        for m in get_modality(cfg):
+            getattr(model, f"Base_{m}").dropout_rate = 0.0
     initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
     data = [(make_batch(cfg, b=B, seed=seed), _targets(seed), tb) for tb, seed in STEPS]
 
     state = create_train_state(cfg, model)
     step = make_train_step(cfg)
     port_losses, port_states = [], []
-    for batch, targets, tb in data:
+    for i, (batch, targets, tb) in enumerate(data):
         state, loss, _ = step(state, batch, targets, 0, tb)
         port_losses.append({k: float(v) for k, v in loss.items()})
-        port_states.append(state_dict_to_jax({k: v.clone() for k, v in model.state_dict().items()}))
+        port_states.append(state_dict_to_jax({k: v.clone() for k, v in model.state_dict().items()})
+                           if i in KEPT_STATES else None)
+    del state, model, step
 
-    jmodel = JaxTBNModel(JaxTBNSpec.from_config(jcfg, get_modality(jcfg)))
-    variables = jax.tree.map(jnp.asarray, state_dict_to_jax(initial))
-    tx, _ = build_optimizer(jcfg, variables["params"], get_modality(jcfg))
-    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                           batch_stats=variables["batch_stats"],
-                           opt_state=tx.init(variables["params"]))
-    jstep = jax_make_train_step(jmodel, tx, jcfg)
     jax_losses, jax_states = [], []
-    for batch, targets, tb in data:
-        jstate, loss, _ = jstep(jstate, jax.tree.map(jnp.asarray, batch),
-                                jax.tree.map(jnp.asarray, targets), jax.random.key(0),
-                                jnp.asarray(0), tb)
-        jax_losses.append({k: float(v) for k, v in loss.items()})
-        jax_states.append({"params": jax.tree.map(np.asarray, jstate.params),
-                           "batch_stats": jax.tree.map(np.asarray, jstate.batch_stats)})
+    with pytest.MonkeyPatch.context() as patch:
+        if vgg_dropout_zero:  # traced inside the patch: the step's towers drop nothing
+            patch.setattr(jax_tbn, "VGG", functools.partial(JaxVGG, dropout_rate=0.0))
+        jmodel = JaxTBNModel(JaxTBNSpec.from_config(jcfg, get_modality(jcfg)))
+        variables = jax.tree.map(jnp.asarray, state_dict_to_jax(initial))
+        tx, _ = build_optimizer(jcfg, variables["params"], get_modality(jcfg))
+        jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                               batch_stats=variables["batch_stats"],
+                               opt_state=tx.init(variables["params"]))
+        jstep = jax_make_train_step(jmodel, tx, jcfg)
+        for i, (batch, targets, tb) in enumerate(data):
+            jstate, loss, _ = jstep(jstate, jax.tree.map(jnp.asarray, batch),
+                                    jax.tree.map(jnp.asarray, targets), jax.random.key(0),
+                                    jnp.asarray(0), tb)
+            jax_losses.append({k: float(v) for k, v in loss.items()})
+            jax_states.append({"params": jax.tree.map(np.asarray, jstate.params),
+                               "batch_stats": jax.tree.map(np.asarray, jstate.batch_stats)}
+                              if i in KEPT_STATES else None)
     return dict(port_losses=port_losses, jax_losses=jax_losses, port_states=port_states,
                 jax_states=jax_states, initial=state_dict_to_jax(initial))
 
 
-@pytest.mark.parametrize("step", range(len(STEPS)))
-def test_resnet_losses_match_jax(runs, step):
-    got, want = runs["port_losses"][step], runs["jax_losses"][step]
+@pytest.fixture(scope="module")
+def runs():
+    return _run_steps(STEP_OVERRIDES)
+
+
+VGG_STEP_OVERRIDES = ["model.arch=vgg", "model.vgg.type=11", "model.attention.enable=false",
+                      "data.flow.enable=false", "model.fusion_dropout=0",
+                      "data.train_crop_size=64"]
+
+
+@pytest.fixture(scope="module")
+def vgg_runs():
+    return _run_steps(VGG_STEP_OVERRIDES, vgg_dropout_zero=True)
+
+
+def _check_losses(run, step):
+    got, want = run["port_losses"][step], run["jax_losses"][step]
     assert set(got) == set(want)
     for key, value in want.items():
         assert np.isfinite(got[key])
         np.testing.assert_allclose(got[key], value, rtol=1e-5, err_msg=key)
+
+
+def _check_state(run, after, collection, rtol, atol):
+    """Returns the share of the state that moved from its start."""
+    got = _leaves(run["port_states"][after][collection])
+    want = _leaves(run["jax_states"][after][collection])
+    start = _leaves(run["initial"][collection])
+    assert set(got) == set(want)
+    moved = 0
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w, rtol=rtol, atol=atol, err_msg=key)
+        moved += not np.array_equal(w, start[key])
+    return got, start, moved / max(len(want), 1)
+
+
+@pytest.mark.parametrize("step", range(len(STEPS)))
+def test_resnet_losses_match_jax(runs, step):
+    _check_losses(runs, step)
 
 
 TIERS = [(0, "params", 1e-3, 1e-4), (0, "batch_stats", 1e-3, 1e-4),
@@ -135,20 +183,28 @@ TIERS = [(0, "params", 1e-3, 1e-4), (0, "batch_stats", 1e-3, 1e-4),
 
 @pytest.mark.parametrize("after,collection,rtol,atol", TIERS)
 def test_resnet_state_matches_jax(runs, after, collection, rtol, atol):
-    got = _leaves(runs["port_states"][after][collection])
-    want = _leaves(runs["jax_states"][after][collection])
-    start = _leaves(runs["initial"][collection])
-    assert set(got) == set(want)
-    moved = 0
-    for key, w in want.items():
-        np.testing.assert_allclose(got[key], w, rtol=rtol, atol=atol, err_msg=key)
-        moved += not np.array_equal(w, start[key])
+    got, start, moved = _check_state(runs, after, collection, rtol, atol)
     # the state moved (two BatchNorm scales of the Audio tower's last
     # stage have an exactly zero gradient on these batches, on both sides)
-    assert moved > 0.95 * len(want)
+    assert moved > 0.95
     if collection == "params":
         assert not np.array_equal(got["Base_RGB/layer2_0/bn2/scale"],
                                   start["Base_RGB/layer2_0/bn2/scale"])
+
+
+@pytest.mark.parametrize("step", range(len(STEPS)))
+def test_vgg_losses_match_jax(vgg_runs, step):
+    _check_losses(vgg_runs, step)
+
+
+@pytest.mark.parametrize("after,rtol,atol", [(0, 1e-3, 1e-4), (2, 5e-3, 5e-4)])
+def test_vgg_state_matches_jax(vgg_runs, after, rtol, atol):
+    """VGG-11 has no BatchNorm: every parameter, the classifier's fc1 and
+    fc2 included, against JAX's after one and after three steps."""
+    got, start, moved = _check_state(vgg_runs, after, "params", rtol, atol)
+    assert moved == 1.0
+    assert _leaves(vgg_runs["jax_states"][after]["batch_stats"]) == {}
+    assert not np.array_equal(got["Base_Audio/fc1/kernel"], start["Base_Audio/fc1/kernel"])
 
 
 TOWER_CASES = {  # case: (port tower, JAX tower, input (B, H, W, C))

@@ -4,14 +4,18 @@ flow pairs, WAV audio, the annotation CSV) plus ``.npz`` flow stacks
 (``preprocessing/create_flow_pickle``), an unlabelled CSV and class
 tables: records, class ids, sampled indices in every mode, transforms,
 decoded train / eval / 10-crop frames, audio windows, attention priors and
-collated, padded batches. Everything is compared bit for bit (the same
-numpy and cv2 calls run on both sides; the JAX side decodes through cv2
-with ``tpu.native_io=false``).
+collated, padded batches. Everything is compared bit for bit: with
+``tpu.native_io=false`` on both sides (cv2 and the Python WAV reader), and
+with ``tpu.native_io=true`` on both sides (the port's native library
+against the JAX package's ``libtbn_io.so``: JPEG decode and the linear WAV
+resampler), including ``read_audio_sample`` on WAV files at 24, 48, 44.1
+and 16 kHz under the default config.
 """
 
 import csv
 import os
 import sys
+import wave
 
 import numpy as np
 import pytest
@@ -196,6 +200,52 @@ def test_dataset_samples_match(root, case):
         assert_same_tree(got, want)
     if "test_ten_crop" in case:
         assert got["Flow"].shape == (20, 32, 32, 10)
+
+
+@pytest.mark.parametrize("case", sorted(DATASET_CASES))
+def test_dataset_samples_match_native(root, case):
+    """The same samples with tpu.native_io=true on both sides: the port's
+    native decode and WAV reader against the JAX package's."""
+    mode, modality, over = DATASET_CASES[case]
+    cfg, jcfg = cfgs(root, *over, "tpu.native_io=true")
+    args = (VIDEOS, "annotations/epic_train_val.csv", modality)
+    got_ds = dataset.VideoDataset(cfg, *args, mode=mode)
+    want_ds = jax_dataset.VideoDataset(jcfg, *args, mode=mode)
+    assert got_ds.native is not None and want_ds.native is not None
+    for i in (0, 4):
+        assert_same_tree(got_ds.sample(i, np.random.default_rng(i)),
+                         want_ds.sample(i, np.random.default_rng(i)))
+
+
+@pytest.mark.parametrize("sr", [24000, 48000, 44100, 16000])
+def test_read_audio_sample_matches_jax(tmp_path, sr):
+    """The default config's WAV read (the native reader's linear resampler
+    on both sides) is bit-equal to the JAX package's at every rate."""
+    t = np.arange(2 * sr) / sr
+    noise = np.random.default_rng(sr).standard_normal(t.shape)
+    pcm = np.clip((0.3 * np.sin(2 * np.pi * 440 * t) + 0.05 * noise) * 32767, -32768, 32767)
+    (tmp_path / "audio").mkdir()
+    with wave.open(str(tmp_path / "audio" / "P01_01.wav"), "wb") as handle:
+        handle.setnchannels(1)
+        handle.setsampwidth(2)
+        handle.setframerate(sr)
+        handle.writeframes(pcm.astype("<i2").tobytes())
+    got = audio.read_audio_sample(str(tmp_path), "audio", "P01_01", sampling_rate=24000)
+    want = jax_audio.read_audio_sample(str(tmp_path), "audio", "P01_01", sampling_rate=24000)
+    assert got.dtype == np.float32 and got.shape == (48000,)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_jpeg_decodes_without_cv2_under_native_io(root, monkeypatch):
+    """No cv2: under tpu.native_io=true the port's library decodes the RGB
+    frames and Flow pairs, equal to the JAX package's cv2 decode."""
+    cfg, jcfg = cfgs(root, "tpu.native_io=true")
+    args = (VIDEOS, "annotations/epic_train_val.csv", ["RGB", "Flow"])
+    want = jax_dataset.VideoDataset(jcfg, *args, mode="val").sample(1, np.random.default_rng(1))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    got = dataset.VideoDataset(cfg, *args, mode="val").sample(1, np.random.default_rng(1))
+    assert got["RGB"].shape == (2, 32, 32, 3) and got["Flow"].shape == (2, 32, 32, 10)
+    assert_same_tree(got, want)
 
 
 def test_audio_and_loud_prior_match(root):
