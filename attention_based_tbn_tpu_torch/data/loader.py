@@ -1,6 +1,6 @@
 """Threaded, prefetching data loader that feeds the card.
 
-Port of the JAX package's ``data/loader.py`` for one device. A thread pool
+Port of the JAX package's ``data/loader.py``. A thread pool
 decodes samples (cv2 and numpy release the GIL), a producer thread collates
 them into numpy batches, pads a ragged batch when ``pad_to`` asks for it,
 and, with a CUDA ``device``, stages every array in pinned host memory and
@@ -10,13 +10,23 @@ one. Visual streams travel as uint8 (4x fewer bytes); normalization runs
 on the device (models/tbn.py).
 
 Each item is ``(batch, targets, meta)``: ``meta["batch_size"]`` is the
-true batch size (rows from it on are padding), ``meta["global_indices"]``
-the dataset indices of the true rows, plus uid / vid_id / timestamps. This
-is the contract the port's ``tools/train.py`` and ``tools/test.py`` read.
+true size of the global batch (rows from it on are padding),
+``meta["global_indices"]`` the dataset indices of its true rows, plus uid /
+vid_id / timestamps of this rank's rows. This is the contract the port's
+``tools/train.py`` and ``tools/test.py`` read.
+
+Several ranks (``shard=(rank, world)``; ``create_dataloader`` sets it from
+``parallel/mesh``), as the JAX package's multi-host loader
+(loader.py:102-120, 195-218): every rank walks the same global batch
+order; each global batch is padded at the index level, by repeating its
+first index, to a multiple of ``world * pad_to``, so the pad rows sit at
+the tail of the global batch; each rank decodes its contiguous ``1/world``
+slice. A sample's augmentation draws from ``(seed, epoch, index)``, so
+what a rank decodes does not depend on the topology.
 
 ``tpu.pack_visual_host`` is accepted and does nothing: the JAX package's
 column-paired visual layout feeds its TPU stem rewrite, and the port takes
-the plain (B, N, H, W, C) layout. Multi-host sharding is not ported.
+the plain (B, N, H, W, C) layout.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .dataset import VideoDataset
 from .records import read_vid_list, resolve_vid_list_path
 
@@ -78,11 +89,14 @@ def pad_batch(batch: Dict, targets: Dict, total: int) -> Tuple[Dict, Dict]:
 
 class DataLoader:
     """Iterates (batch, targets, meta) with background decode, prefetch and,
-    on a CUDA ``device``, pinned non-blocking copies to the card."""
+    on a CUDA ``device``, pinned non-blocking copies to the card.
+    ``batch_size`` is the global batch's; ``shard=(rank, world)`` gives this
+    rank its slice of every global batch (``world`` must divide
+    ``batch_size``); ``pad_to`` is the global device count."""
 
     def __init__(self, dataset: VideoDataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, seed: int = 0, prefetch: int = 2, device=None,
-                 pad_to: int = 1):
+                 pad_to: int = 1, shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -91,6 +105,16 @@ class DataLoader:
         self.prefetch = max(int(prefetch), 1)
         self.device = None if device is None else torch.device(device)
         self.pad_to = max(int(pad_to), 1)
+        self.shard = shard
+        if shard is not None:
+            index, count = shard
+            if not 0 <= index < count:
+                raise ValueError(f"shard {shard}: not (rank, world) with 0 <= rank < world")
+            if batch_size % count:
+                raise ValueError(f"{count} ranks must divide the global batch size "
+                                 f"{batch_size}")
+            # pad_to counts the global devices; each rank pads to its share
+            self.pad_to = max(self.pad_to // count, 1)
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -107,15 +131,31 @@ class DataLoader:
         return order
 
     def _batches(self) -> List[np.ndarray]:
+        """The global batches' dataset indices, the same on every rank."""
         order = self._index_order()
         return [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
 
+    def local_indices(self, batch: np.ndarray) -> np.ndarray:
+        """This rank's indices of a global batch: the batch padded (by
+        repeating its first index) to a multiple of ``world * pad_to``, then
+        the rank's contiguous ``1/world`` of it; the batch itself unsharded."""
+        if self.shard is None:
+            return batch
+        index, count = self.shard
+        chunk = count * self.pad_to
+        padded = max(-(-len(batch) // chunk) * chunk, chunk)
+        if len(batch) < padded:
+            batch = np.concatenate([batch, np.repeat(batch[:1], padded - len(batch))])
+        local = padded // count
+        return batch[index * local:(index + 1) * local]
+
     def _assemble(self, samples, indices: np.ndarray, stream) -> Tuple[Dict, Dict, Dict, Any]:
-        """One (batch, targets, meta) triple, padded to the ``pad_to``
-        multiple and, on a card, copied there on ``stream``; the last item
-        is the copy's CUDA event (None off the card)."""
+        """One (batch, targets, meta) triple of this rank's ``samples`` of the
+        global batch ``indices``, padded to the ``pad_to`` multiple and, on a
+        card, copied there on ``stream``; the last item is the copy's CUDA
+        event (None off the card)."""
         batch, targets, meta = collate(samples)
-        meta["batch_size"] = len(samples)
+        meta["batch_size"] = len(indices)
         meta["global_indices"] = indices
         padded = -(-len(samples) // self.pad_to) * self.pad_to
         if padded != len(samples):
@@ -152,8 +192,8 @@ class DataLoader:
                     for idx in batches:
                         if stop.is_set():
                             return
-                        out_queue.put(self._assemble(list(pool.map(sample_one, idx)), idx,
-                                                     stream))
+                        samples = list(pool.map(sample_one, self.local_indices(idx)))
+                        out_queue.put(self._assemble(samples, idx, stream))
                 out_queue.put(None)
             except BaseException as exc:  # decode errors surface in the consumer
                 out_queue.put(exc)
@@ -189,7 +229,9 @@ class DataLoader:
 def create_dataloader(cfg, modality, mode: str = "train", device=None) -> DataLoader:
     """The reference's create_dataloader surface (core/utils/
     create_dataloader.py): val reads the train annotation file; batch size
-    and split list per mode."""
+    and split list per mode. With several ranks (``parallel/mesh``) the
+    loader takes this rank's shard, padded to the world (the JAX package's
+    loader.py:297-304)."""
     section = {"train": cfg.train, "val": cfg.val, "test": cfg.test}[mode]
     annotation_file = (cfg.train.annotation_file if mode in ("train", "val")
                        else cfg.test.annotation_file)
@@ -199,6 +241,8 @@ def create_dataloader(cfg, modality, mode: str = "train", device=None) -> DataLo
     if section.vid_list:
         vid_list = read_vid_list(resolve_vid_list_path(section.vid_list))
     dataset = VideoDataset(cfg, vid_list, annotation_file, modality, mode=mode)
+    world = mesh.world_size()
     return DataLoader(dataset, batch_size=int(section.batch_size), shuffle=(mode == "train"),
                       num_workers=int(cfg.num_workers), seed=int(cfg.data.manual_seed),
-                      prefetch=int(cfg.get_path("tpu.prefetch", 2) or 2), device=device)
+                      prefetch=int(cfg.get_path("tpu.prefetch", 2) or 2), device=device,
+                      pad_to=world, shard=(mesh.rank(), world) if world > 1 else None)

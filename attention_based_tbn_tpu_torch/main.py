@@ -11,6 +11,15 @@ run log and the TensorBoard writer, then trains (``train.enable``:
 ``<out_dir>/<model.checkpoint_dir>/<exp_name>/``) and evaluates
 (``test.enable``: ``tools/test.run_tester`` on ``test.pre_trained``). The
 device is CUDA unless ``tpu.platform=cpu`` asks for the CPU.
+
+Several cards: one process per card under ``torchrun`` (``parallel/mesh``:
+data parallelism with the JAX package's SPMD semantics; NCCL, or gloo where
+ranks share a card or run on the CPU)::
+
+    torchrun --nproc_per_node=N -m attention_based_tbn_tpu_torch.main train.enable=true ...
+
+Rank 0 alone makes the run dir, writes the run log's file and the
+TensorBoard scalars; the other ranks log warnings to the console.
 """
 
 from __future__ import annotations
@@ -21,19 +30,40 @@ import numpy as np
 import torch
 
 from .config import load_config, make_run_dir
+from .parallel.mesh import make_mesh, shutdown
 from .utils.logging import setup_log
 from .utils.misc import get_modality
 
 
 def device_for(cfg) -> str:
     """"cpu" for ``tpu.platform=cpu``, "cuda" for "" (the default), "gpu"
-    or "cuda"; other platforms are refused."""
+    or "cuda"; other platforms are refused. The card of each rank is
+    ``parallel/mesh.make_mesh``'s."""
     platform = str(cfg.get_path("tpu.platform", "") or "").lower()
     if platform == "cpu":
         return "cpu"
     if platform in ("", "gpu", "cuda"):
         return "cuda"
     raise ValueError(f"tpu.platform={platform!r}: the port runs on 'cpu' or 'cuda'")
+
+
+def build_once_per_host(cfg, mesh) -> None:
+    """With several ranks, the first rank of each host compiles what the
+    run loads (the kernels on a card, the native IO library under
+    ``tpu.native_io``) while the others wait, so no two ranks run the same
+    compiler. One process builds at first use, as before."""
+    if mesh.world == 1:
+        return
+    if mesh.local_rank == 0:
+        if mesh.device.type == "cuda":
+            from .ops import build
+
+            build.build()
+        if bool(cfg.get_path("tpu.native_io", True)):
+            from . import native
+
+            native.build()
+    mesh.barrier()
 
 
 def main(argv=None):
@@ -53,18 +83,21 @@ def main(argv=None):
 
     cfg = load_config(overrides=overrides, config_dir=config_dir)
     device = device_for(cfg)
+    mesh = make_mesh(cfg, device)
+    build_once_per_host(cfg, mesh)
     seed = int(cfg.data.manual_seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
     modality = get_modality(cfg)
-    run_dir = make_run_dir(cfg)
+    run_dir = make_run_dir(cfg) if mesh.is_primary() else None
     cfg.run_dir = run_dir
-    logger, writer = setup_log(modality, run_dir)
+    logger, writer = setup_log(modality, run_dir, primary=mesh.is_primary())
     logger.info("Initializing the pipeline...")
     logger.info(cfg.pretty())
     logger.info(f"Modality: {modality}")
     logger.info(f"Run dir: {run_dir}")
-    logger.info(f"Device: {device}")
+    logger.info(f"Device: {mesh.device}")
+    logger.info(mesh.describe())
     logger.info("-" * 58)
 
     results = None
@@ -89,4 +122,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

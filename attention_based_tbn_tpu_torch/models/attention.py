@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..data.priors import gaussian_kernel
 from ..ops import kernels
+from ..parallel import mesh
 from .layers import CastCache, dropout, lecun_normal_, linear, reset_linear_
 
 PE_CHANNELS = 10  # reference model.py:64 — PositionalEncoding(10, ...)
@@ -160,8 +161,9 @@ def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Te
     ``generator``: the softmax of logits + Gumbel(0, 1) in float32, returned
     as the one-hot of its argmax forward with the softmax's gradient
     backward (straight-through), in the logits' dtype."""
-    gumbels = -torch.empty(logits.shape, device=logits.device).exponential_(
-        generator=generator).log()
+    # the global batch's draw, this rank's rows kept (parallel/mesh)
+    gumbels = -mesh.global_noise(logits.shape, lambda shape: torch.empty(
+        shape, device=logits.device).exponential_(generator=generator)).log()
     y = torch.softmax(logits.float() + gumbels, dim=-1)
     y_hard = F.one_hot(y.argmax(dim=-1), logits.shape[-1]).to(y.dtype)
     return (y_hard + y - y.detach()).to(logits.dtype)

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from ..utils.device import tracing
 
 BN_EPSILON = 1e-5
@@ -142,20 +143,35 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mean_offset: torch.Ten
       the running mean records it;
     * ``row_mask``: 0/1 per row of N; masked rows (a loader's pad rows) are
       left out of the statistics, and the count is the masked count.
-      ``nn.BatchNorm2d`` has no row mask, hence this function.
+      ``nn.BatchNorm2d`` has no row mask, hence this function;
+    * several ranks (``parallel/mesh``): the statistics are the global
+      batch's, as under the JAX package's SPMD: the masked sums of x and
+      x^2 and the count, in float32, are summed over the ranks by a
+      differentiable all-reduce (its backward sums their gradients), so
+      every rank normalizes and updates its running statistics alike. A
+      row mask on one process takes the same sums (the all-reduce is then
+      the identity); one process without a mask takes plain means.
     """
     xf = x.float()
     axes = (0, 2, 3)
-    if row_mask is None:
+    if row_mask is None and mesh.world_size() == 1:
         mean = xf.mean(dim=axes)
         sq = xf.square().mean(dim=axes)
         n = x.shape[0] * x.shape[2] * x.shape[3]
         correction = n / max(n - 1, 1)
     else:
-        w = row_mask.float().view(-1, 1, 1, 1)
-        count = row_mask.float().sum().clamp_min(1.0) * (x.shape[2] * x.shape[3])
-        mean = (xf * w).sum(dim=axes) / count
-        sq = (xf.square() * w).sum(dim=axes) / count
+        hw = x.shape[2] * x.shape[3]
+        if row_mask is None:
+            s1, s2 = xf.sum(dim=axes), xf.square().sum(dim=axes)
+            n = xf.new_full((1,), float(x.shape[0] * hw))
+        else:
+            w = row_mask.float().view(-1, 1, 1, 1)
+            s1, s2 = (xf * w).sum(dim=axes), (xf.square() * w).sum(dim=axes)
+            n = (row_mask.float().sum() * hw).view(1)
+        c = s1.shape[0]
+        total = mesh.all_reduce_sum(torch.cat([s1, s2, n]))
+        count = total[2 * c].clamp_min(1.0)
+        mean, sq = total[:c] / count, total[c:2 * c] / count
         correction = count / (count - 1.0).clamp_min(1.0)
     var = (sq - mean.square()).clamp_min(0.0)
     with torch.no_grad():
@@ -213,12 +229,14 @@ def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn, cache: CastCache, name: str,
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Inverted dropout with the noise drawn from ``generator`` (flax
     ``nn.Dropout``: keep with probability 1 - rate, scale kept values by
-    1 / (1 - rate))."""
+    1 / (1 - rate)); rows lead ``x``."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    # the global batch's draw, this rank's rows kept (parallel/mesh)
+    keep = mesh.global_noise(
+        x.shape, lambda shape: torch.rand(shape, generator=generator, device=x.device)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

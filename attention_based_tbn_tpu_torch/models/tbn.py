@@ -39,6 +39,7 @@ from ..data.priors import attention_window_size
 from ..ops.kernels import consensus_heads
 from ..ops.pooling import POOL_IMPLS
 from ..ops.spectrogram import spectrogram
+from ..parallel import mesh
 from ..utils.device import tf32_scope
 from .attention import MHAttention, PositionalEncoding, PrototypeAttention, UniModalAttention
 from .bn_inception import FEATURE_SIZE, BNInception
@@ -270,8 +271,10 @@ class TBNModel(nn.Module):
         class type (and ``weights`` with learned attention).
 
         Training only: ``true_batch``, the true batch size when rows past it
-        are padding (None: every row is real); ``generator``, the source of
-        every dropout and gumbel draw, on the model's device (required)."""
+        are padding (None: every row is real); with several ranks it counts
+        the global batch, of which ``batch`` is this rank's contiguous slice
+        (parallel/mesh); ``generator``, the source of every dropout and
+        gumbel draw, on the model's device (required)."""
         if self.training and generator is None:
             raise ValueError("the training forward needs a torch.Generator for its noise")
         with tf32_scope(self.spec.compute_dtype):
@@ -293,8 +296,9 @@ class TBNModel(nn.Module):
                 x = x.reshape((b * n,) + x.shape[2:]).permute(0, 3, 1, 2)
             row_mask = None
             if self.training and true_batch is not None:
-                # 0/1 per folded (sample, segment) row; rows are batch-major
-                row_mask = (torch.arange(b, device=x.device) < true_batch).float()
+                # 0/1 per folded (sample, segment) row; rows are batch-major;
+                # true_batch counts the global batch (parallel/mesh)
+                row_mask = mesh.row_mask(b, true_batch, x.device)
                 row_mask = row_mask.repeat_interleave(x.shape[0] // b)
             tower = getattr(self, f"Base_{m}")
             uint8 = m in ("RGB", "Flow") and x.dtype == torch.uint8

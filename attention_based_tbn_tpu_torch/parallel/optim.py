@@ -14,7 +14,13 @@ core/tools/train.py:189-217, core/models/model.py:148-176):
   parameter under it, as in the reference, and a warning says so as the
   JAX package's does;
 * gradient accumulation as ``optax.MultiSteps``: the mean gradient of
-  ``accumulator_step`` backward passes, one update every k of them.
+  ``accumulator_step`` backward passes, one update every k of them;
+* with several ranks (``parallel/mesh``), each backward's gradients summed
+  over the ranks first (one flat buffer per dtype): the losses are the
+  ranks' shares of the global mean, so the sum is the global gradient
+  (an average, as DDP's, would divide by the world a second time), and
+  the clip sees the global norm, as ``optax.clip_by_global_norm`` does
+  under SPMD.
 
 The update itself is ``torch.optim``'s where it equals optax's: SGD with
 momentum and no dampening keeps ``buf = m * buf + g`` (the first step
@@ -31,6 +37,8 @@ import logging
 from typing import Dict, List
 
 import torch
+
+from . import mesh
 
 # Stem modules whose BN affine parameters stay trainable under partialbn:
 # the reference keeps the tower's FIRST BN child trainable, conv1_7x7_s2_bn
@@ -128,6 +136,7 @@ class Optimizer:
     def step(self) -> bool:
         """Apply one micro-step; returns True when the parameters changed."""
         grads = self._grads()
+        mesh.all_reduce_flat_(grads)
         self._model.zero_grad(set_to_none=True)
         if self.every_k > 1:
             # optax.MultiSteps' running mean: acc += (g - acc) / (micro + 1)

@@ -1,13 +1,21 @@
 """Train, eval and infer steps.
 
 Port of the JAX package's ``parallel/train_step.py`` (reference
-core/tools/train.py:69-104) for one device: forward, loss, backward, grad
-clip, optimizer update and the BatchNorm running-stat update of one batch.
-PyTorch runs eagerly, so where the JAX package compiles a masked and an
-unmasked program and routes a batch between them on ``true_bs`` (the loader
-pads a ragged batch to the mesh size), here the same routing decides
-whether the forward and the loss get a pad-row mask at all: a full batch
-(``true_bs == rows``) takes no mask and pays for none.
+core/tools/train.py:69-104): forward, loss, backward, grad clip, optimizer
+update and the BatchNorm running-stat update of one batch. PyTorch runs
+eagerly, so where the JAX package compiles a masked and an unmasked
+program and routes a batch between them on ``true_bs`` (the loader pads a
+ragged batch to the mesh size), here the same routing decides whether the
+forward and the loss get a pad-row mask at all: a full global batch
+(``true_bs`` = the global rows) takes no mask and pays for none.
+
+Several ranks (``parallel/mesh``, one process per card under ``torchrun``)
+run the JAX package's SPMD step: each takes its contiguous slice of the
+global batch; BatchNorm's statistics and every loss mean are the global
+batch's; the gradients are summed over the ranks (``optim.Optimizer``)
+and every rank takes the same update. The steps return the global losses
+and the global batch's predictions on every rank, as the JAX package's
+replicated outputs.
 
 The state is updated in place (the model's parameters and statistics, the
 optimizer's buffers, the step count, the generator); each step returns it
@@ -37,6 +45,7 @@ import torch
 from ..models.losses import tbn_loss
 from ..models.tbn import TBNModel
 from ..utils.device import tf32_scope
+from . import mesh
 from .optim import Optimizer
 
 
@@ -94,18 +103,45 @@ def _rows(batch: Mapping[str, Any]) -> int:
     return next(int(v.shape[0]) for v in batch.values() if hasattr(v, "shape"))
 
 
+def _true_batch(batch: Mapping[str, Any], true_bs: int):
+    """None for a full global batch, else the global true batch size."""
+    return None if int(true_bs) == _rows(batch) * mesh.world_size() else int(true_bs)
+
+
+def global_losses(loss: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ranks' loss shares summed into the global losses, by one
+    collective (the dict itself for one process)."""
+    if mesh.world_size() == 1:
+        return loss
+    keys = list(loss)
+    device = next(v.device for v in loss.values() if isinstance(v, torch.Tensor))
+    stacked = torch.stack([torch.as_tensor(loss[k], dtype=torch.float32, device=device)
+                           for k in keys])
+    return dict(zip(keys, mesh.all_reduce_(stacked).unbind()))
+
+
+def global_rows(tree: Any) -> Any:
+    """Every tensor of a nested dict as the global batch's rows on every
+    rank (``mesh.gather_rows``): the predictions, and the labels the
+    metrics read (the tree itself for one process)."""
+    if isinstance(tree, Mapping):
+        return {k: global_rows(v) for k, v in tree.items()}
+    return mesh.gather_rows(tree) if isinstance(tree, torch.Tensor) else tree
+
+
 def make_train_step(cfg) -> Callable:
     """fn(state, batch, targets, epoch, true_bs) -> (state, loss dict,
-    preds). Rows from ``true_bs`` on are padding: masked out of every loss
-    mean and every BatchNorm statistic. Losses and predictions are detached
-    device tensors; nothing synchronizes with the host."""
+    preds). Rows from ``true_bs`` (of the global batch) on are padding:
+    masked out of every loss mean and every BatchNorm statistic. Losses
+    (global) and predictions (the global batch's) are detached device
+    tensors; nothing synchronizes with the host."""
 
     def step(state: TrainState, batch, targets, epoch: int, true_bs: int):
         model = state.model
         model.train()
         batch = to_device(batch, state.device)
         targets = to_device(targets, state.device)
-        tb = None if int(true_bs) == _rows(batch) else int(true_bs)
+        tb = _true_batch(batch, true_bs)
         # the backward's convolutions and products take the forward's TF32 rule
         with tf32_scope(model.spec.compute_dtype):
             preds = model(batch, true_batch=tb, generator=state.generator)
@@ -114,14 +150,15 @@ def make_train_step(cfg) -> Callable:
             loss["total"].backward()
         state.optimizer.step()
         state.step += 1
-        return state, _detach(loss), _detach(preds)
+        return state, global_losses(_detach(loss)), global_rows(_detach(preds))
 
     return step
 
 
 def make_eval_step(cfg) -> Callable:
     """fn(state, batch, targets, epoch, true_bs) -> (loss dict, preds), with
-    running-statistics BatchNorm; pad rows are masked out of the loss."""
+    running-statistics BatchNorm; pad rows are masked out of the loss. The
+    losses are global and the predictions the global batch's."""
 
     @torch.no_grad()
     def step(state: TrainState, batch, targets, epoch: int, true_bs: int):
@@ -129,22 +166,23 @@ def make_eval_step(cfg) -> Callable:
         model.eval()
         batch = to_device(batch, state.device)
         targets = to_device(targets, state.device)
-        tb = None if int(true_bs) == _rows(batch) else int(true_bs)
+        tb = _true_batch(batch, true_bs)
         preds = model(batch)
         loss = tbn_loss(preds, targets, cfg, epoch=epoch, train=False,
                         attention_weights=preds.get("weights"), true_batch=tb)
-        return loss, preds
+        return global_losses(loss), global_rows(preds)
 
     return step
 
 
 def make_infer_step() -> Callable:
-    """fn(state, batch) -> preds: the eval forward alone."""
+    """fn(state, batch) -> preds: the eval forward alone (the global
+    batch's predictions)."""
 
     @torch.no_grad()
     def step(state: TrainState, batch):
         state.model.eval()
-        return state.model(to_device(batch, state.device))
+        return global_rows(state.model(to_device(batch, state.device)))
 
     return step
 

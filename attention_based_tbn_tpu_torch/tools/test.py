@@ -7,6 +7,12 @@ test mode (10-crop under ``test.ten_crop``), computes loss and accuracy
 where the file has labels, logs the sustained clips/s, and with
 ``test.save_results`` writes one Epic-Kitchens challenge JSON per file into
 ``<out_dir>/inferences/``.
+
+With several ranks (``parallel/mesh``) each rank decodes and runs its shard
+of every global batch; the predictions are the global batch's on every
+rank, the uids come in global order from the loader's pre-shard indices,
+the clips/s counts the global batch, and rank 0 alone writes the JSON (the
+JAX package's tools/test.py:108-116, 150-160, 189-192).
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ from ..data.dataset import VideoDataset
 from ..data.loader import DataLoader
 from ..data.records import read_pickle, read_vid_list, resolve_vid_list_path
 from ..models.builder import build_model
-from ..parallel.train_step import TrainState, make_eval_step, make_infer_step
+from ..parallel.mesh import make_mesh
+from ..parallel.train_step import (TrainState, global_rows, make_eval_step, make_infer_step,
+                                   to_device)
 from ..utils.checkpoint import load_eval_weights
-from ..utils.device import resolve_device
 from ..utils.metrics import Metric
 from ..utils.misc import get_time_diff, save_scores
 
@@ -53,8 +60,11 @@ def _ready(preds) -> None:
 def run_tester(cfg, logger, modality: List[str], state: Optional[TrainState] = None,
                device="cuda"):
     """Per annotation file: (loss, accuracy, confusion matrices) when it has
-    labels, else None."""
-    device = resolve_device(device)
+    labels, else None. ``device``: "cpu" or "cuda" (this rank's card,
+    ``parallel/mesh.make_mesh``)."""
+    mesh = make_mesh(cfg, device)
+    device = mesh.device
+    logger.info(mesh.describe())
     if state is None:
         state = load_state(cfg, logger, modality, device)
     eval_step = make_eval_step(cfg)
@@ -79,7 +89,9 @@ def run_tester(cfg, logger, modality: List[str], state: Optional[TrainState] = N
         dataset = VideoDataset(cfg, vid_list, annotation, modality, mode="test")
         loader = DataLoader(dataset, batch_size=int(cfg.test.batch_size), shuffle=False,
                             num_workers=int(cfg.num_workers),
-                            prefetch=int(cfg.get_path("tpu.prefetch", 2) or 2), device=device)
+                            prefetch=int(cfg.get_path("tpu.prefetch", 2) or 2), device=device,
+                            pad_to=mesh.size,
+                            shard=(mesh.rank, mesh.world) if mesh.world > 1 else None)
         logger.info(f"{len(dataset)} action segments to be processed.")
         logger.info("Inference in progress...")
 
@@ -96,7 +108,8 @@ def run_tester(cfg, logger, modality: List[str], state: Optional[TrainState] = N
             if targets["class"] is not None:
                 labeled = True
                 loss, preds = eval_step(state, batch, targets, 0, true_bs)
-                metric.update(preds, targets, loss, batch_size=true_bs)
+                metric.update(preds, global_rows(to_device(targets, device)), loss,
+                              batch_size=true_bs)
             else:
                 preds = infer_step(state, batch)
             if first_done is None:
@@ -105,6 +118,7 @@ def run_tester(cfg, logger, modality: List[str], state: Optional[TrainState] = N
                 _ready(preds)
                 first_done, first_clips = time.perf_counter(), clips_done
             if cfg.test.save_results:
+                # the global batch's uids, in global order, on every rank
                 uids = [dataset.record(int(i)).action_id
                         for i in meta["global_indices"][:true_bs]]
                 output["action_id"].append(np.asarray(uids))
@@ -131,12 +145,14 @@ def run_tester(cfg, logger, modality: List[str], state: Optional[TrainState] = N
         else:
             all_results.append(None)
 
-        if cfg.test.save_results:
+        if cfg.test.save_results and mesh.is_primary():
             out_file = os.path.join(cfg.out_dir or ".", "inferences", cfg.test.results_file[idx])
             names_path = os.path.join(cfg.data_dir, "annotations", "action_id_to_name.pkl")
             action_names = read_pickle(names_path) if os.path.exists(names_path) else None
             save_scores(output, out_file, action_names)
             logger.info(f"Saved results to {out_file}")
+        if cfg.test.save_results:
+            mesh.barrier()  # every rank returns once the file is in place
 
     hours, minutes, seconds = get_time_diff(start_time, time.time())
     logger.info(f"Inference time: {hours} hours, {minutes} minutes, {seconds} seconds")

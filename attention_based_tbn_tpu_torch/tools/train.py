@@ -1,21 +1,28 @@
 """Training: epochs of train steps, validation, checkpoints.
 
 Port of the JAX package's ``tools/train.py`` (reference core/tools/
-train.py) for one device: ``run_trainer`` builds the model, loads the
-pretrained towers, and runs epochs of ``train_one_epoch`` at the learning
+train.py): ``run_trainer`` builds the data mesh (``parallel/mesh``: one
+process per card under ``torchrun``, or one process), the model and the
+loaders (each rank its shard of every global batch), loads the pretrained
+towers on every rank (seeded and read from the same files, so the ranks
+start equal), and runs epochs of ``train_one_epoch`` at the learning
 rate of ``lr_at_epoch``, each followed by ``validate`` (``val.enable``) and
 a checkpoint (utils/checkpoint.py; the best one under ``train.save_best``),
 with TensorBoard scalars; ``train.pre_trained`` resumes a checkpoint and
-extends ``train.epochs`` by the epochs it holds, as the reference does.
+extends ``train.epochs`` by the epochs it holds, as the reference does. Rank 0
+writes the checkpoints (every rank restores from them) and the
+TensorBoard scalars.
 
 ``train_one_epoch`` and ``validate`` take any loader that yields
-``(batch, targets, meta)`` with ``meta["batch_size"]`` the true batch size
-(the contract of ``data/loader.py``), has a ``__len__`` (the number of
-batches) and a ``set_epoch``.
+``(batch, targets, meta)`` with ``meta["batch_size"]`` the true size of the
+global batch (the contract of ``data/loader.py``), has a ``__len__`` (the
+number of batches) and a ``set_epoch``; the metrics read the global
+batch's predictions and labels, the same on every rank.
 
 ``tpu.steps_per_call`` and ``tpu.fuse_accum`` group steps into one TPU
-dispatch in the JAX package, with the math of sequential steps; here they
-do nothing but log a warning, and every batch is one step.
+dispatch in the JAX package, with the math of sequential steps (it refuses
+them across processes); here they do nothing but log a warning, and every
+batch is one step, on any number of ranks.
 """
 
 from __future__ import annotations
@@ -30,10 +37,11 @@ import torch
 
 from ..data.loader import create_dataloader
 from ..models.builder import build_model, load_pretrained_towers
+from ..parallel.mesh import make_mesh
 from ..parallel.optim import lr_at_epoch
-from ..parallel.train_step import create_train_state, make_eval_step, make_train_step
+from ..parallel.train_step import (create_train_state, global_rows, make_eval_step,
+                                   make_train_step, to_device)
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint, wait_until_finished
-from ..utils.device import resolve_device
 from ..utils.logging import Plotter
 from ..utils.metrics import Metric
 from ..utils.misc import get_time_diff
@@ -80,7 +88,7 @@ def train_one_epoch(cfg, state, step_fn, loader, metric: Metric, epoch: int, log
         state, loss, preds = step_fn(state, batch, targets, epoch, bs)
         step_times.append(time.perf_counter() - step_start)
         clips_done += bs
-        metric.update(preds, targets, loss, batch_size=bs)
+        metric.update(preds, global_rows(to_device(targets, state.device)), loss, batch_size=bs)
         total = loss["total"]
         loss_tracker = total if loss_tracker is None else loss_tracker + total
         if prof is not None and iter_no + 1 >= profile_steps:
@@ -113,7 +121,8 @@ def validate(cfg, state, eval_fn, loader, epoch: int, logger):
         for batch, targets, meta in loader:
             bs = int(meta["batch_size"])
             loss, preds = eval_fn(state, batch, targets, epoch, bs)
-            metric.update(preds, targets, loss, batch_size=bs)
+            metric.update(preds, global_rows(to_device(targets, state.device)), loss,
+                          batch_size=bs)
     return metric.compute()
 
 
@@ -137,8 +146,11 @@ def _warn_grouped_dispatch(cfg, logger) -> None:
 
 def run_trainer(cfg, logger, modality: List[str], writer=None, device="cuda"):
     """Train ``cfg.train.epochs`` epochs (more after a resume) on
-    ``device``; returns the final train state."""
-    device = resolve_device(device)
+    ``device`` ("cpu" or "cuda": this rank's card, ``parallel/mesh.
+    make_mesh``); returns the final train state, the same on every rank."""
+    mesh = make_mesh(cfg, device)
+    device = mesh.device
+    logger.info(mesh.describe())
     epochs = int(cfg.train.epochs)
     _warn_grouped_dispatch(cfg, logger)
 

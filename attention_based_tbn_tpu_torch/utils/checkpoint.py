@@ -14,7 +14,11 @@ syncs it and renames it over ``<stem>.pth`` (``os.replace``), so a save cut
 short leaves the previous checkpoint whole; the history is replaced only
 after the checkpoint it describes is in place. Saves are synchronous, so
 ``wait_until_finished`` (the JAX package's wait for its asynchronous Orbax
-save) has nothing to wait for.
+save) has nothing to wait for. With several ranks (``parallel/mesh``) the
+ranks hold one state, so rank 0 alone writes, and every rank waits at a
+barrier until the files are in place (the JAX package's primary-host
+writes, checkpoint.py:42-51, 85-90); every rank restores from the same
+file.
 
 Evaluation (``test.pre_trained``) reads the model of such a file, of the
 reference's training checkpoints, of the JAX package's
@@ -37,6 +41,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ..parallel import mesh
 
 HISTORY_KEYS = ("epoch", "train_loss", "validation_loss", "validation_accuracy")
 
@@ -127,8 +133,19 @@ def save_checkpoint(stem: str, state, epoch: int, train_loss_hist=None, val_loss
                     val_acc_hist=None, conf_mat: Optional[Dict] = None) -> str:
     """Write ``<stem>.pth`` and then ``<stem>.history.json`` for ``state``
     (a ``parallel/train_step.TrainState``) after ``epoch``; returns the
-    ``.pth`` path."""
+    ``.pth`` path. Rank 0 writes; every rank returns once both are in
+    place."""
     stem = os.path.abspath(stem)
+    path = stem + ".pth"
+    if mesh.is_primary():
+        _write_checkpoint(stem, path, state, epoch, train_loss_hist, val_loss_hist,
+                          val_acc_hist, conf_mat)
+    mesh.barrier()
+    return path
+
+
+def _write_checkpoint(stem: str, path: str, state, epoch: int, train_loss_hist,
+                      val_loss_hist, val_acc_hist, conf_mat) -> None:
     os.makedirs(os.path.dirname(stem), exist_ok=True)
     history = {"epoch": int(epoch), "train_loss": list(train_loss_hist or []),
                "validation_loss": list(val_loss_hist or []),
@@ -140,13 +157,11 @@ def save_checkpoint(stem: str, state, epoch: int, train_loss_hist=None, val_loss
         "conf_mat": {k: torch.from_numpy(v) for k, v in conf.items()},
         **state.state_dict(),
     }
-    path = stem + ".pth"
     _write_replacing(path, f"{path}.tmp-{int(epoch)}", lambda fh: torch.save(payload, fh))
     if conf:
         history["conf_mat"] = {k: v.tolist() for k, v in conf.items()}
     hist = history_path(stem)
     _write_replacing(hist, hist + ".tmp", lambda fh: fh.write(json.dumps(history).encode()))
-    return path
 
 
 def restore_checkpoint(path: str, state) -> Tuple[object, Dict]:

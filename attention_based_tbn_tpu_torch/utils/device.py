@@ -14,13 +14,20 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """The torch device for ``device``; raises when it names CUDA and no
-    card is present."""
+    card is present, or a card the host does not have. A named card
+    (``cuda:k``; a rank's card from ``parallel/mesh.make_mesh``) becomes
+    the current device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but no CUDA device is available; "
             "pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is not None:
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"device {device!r} requested but this host shows "
+                               f"{torch.cuda.device_count()} card(s)")
+        torch.cuda.set_device(dev)
     return dev
 
 

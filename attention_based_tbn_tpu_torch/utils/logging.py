@@ -16,12 +16,14 @@ from typing import List, Optional
 _FORMAT = "%(levelname)s : %(asctime)s : %(message)s"
 
 
-def setup_log(modality: List[str], run_dir: Optional[str] = None):
+def setup_log(modality: List[str], run_dir: Optional[str] = None, primary: bool = True):
     """(logger, writer): the writer is a tensorboardX SummaryWriter into
-    ``run_dir``, or None without tensorboardX or a run dir."""
+    ``run_dir``, or None without tensorboardX or a run dir. A rank other
+    than the primary (``primary=False``) logs warnings and errors only
+    (``main`` gives it no run dir)."""
     name = "tbn_" + "_".join(modality)
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if primary else logging.WARNING)
     logger.handlers.clear()
     logger.propagate = False  # no duplicate lines through the root logger
     formatter = logging.Formatter(_FORMAT)

@@ -24,7 +24,7 @@ its streaming route) and a ragged one, each record naming the route the
 library took (``route``), and a NaN input; consensus_heads with its device
 time by CUDA graph (``graph_ms``) at every shape, plus one-row, one-clip,
 F = 1024, 2048 and 4096 (a ResNet or VGG tower feeding the heads alone)
-and one-, three- and four-head cases. Then drives seven paths,
+and one-, three- and four-head cases. Then drives eight paths,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -44,7 +44,7 @@ after:
   written by the port's ``data/synthetic`` and
   ``preprocessing/create_flow_pickle``, 10-crop, the fused stem on all
   three towers, fast consensus and the challenge JSON, over a labelled and
-  an unlabelled annotation file (40 clips each), from a seeded ``{"model":
+  an unlabelled annotation file (20 clips each), from a seeded ``{"model":
   state_dict}`` .pth; the same run with every kernel off must give the same
   uids and scores within the bf16 drift bound, and so must the same run
   with ``tpu.native_io=false`` (cv2 and the Python WAV reader); clips/s of
@@ -77,20 +77,42 @@ after:
   as int8 in under 0.6x the bf16 one's bytes; ten concurrent b=1 requests
   through a ``BatchingFront`` equal to their lone predicts, one group at
   least coalesced; export seconds, bytes, latency and device launches per
-  request beside the eager model's. The kernels line's launches are this
-  path's (conv3x3's the probe's);
+  request beside the eager model's;
 * the tower families (``arch_path``): ResNet-101 (tri-modal, attention
   off, 224^2, 25 segments, bf16, fast consensus, kernels on, seeded
   weights) served at b = 1 and 10 against the same weights in float32
   with the kernels off and in bf16 with them off (the drift bound), with
   latency, peak memory and a device profile (cuDNN convs, the BatchNorm
   affine, the rest); evaluated through ``main`` (Flow .npz + Audio, 10-crop,
-  20 clips in each of two files, the challenge JSON; again with the
+  10 clips in each of two files, the challenge JSON; again with the
   kernels off, scores compared); trained (12 x 3 segments, two warm-ups,
   four timed steps); exported as a bf16 bundle at batch 1 and served
   against eager on its own weights; then VGG-16 served at b = 1 and 2 (its
   Audio tower's 8 x 13 map through the adaptive pool to 7 x 7).
-  consensus_heads must launch on each part.
+  consensus_heads must launch on each part;
+* data parallelism (``multi_rank_path``, ``parallel/mesh``): this script's
+  worker under ``torch.distributed.run`` on R = max(2, cards) ranks, one
+  card each over NCCL, or sharing one card over gloo (the backend is
+  printed); (a) three flagship train steps at full width (12 x 3 global
+  batches, seeded pretrained towers, ``tpu.pool_impl=pallas``; the third
+  ragged, 11 true rows, rank R-1 holding the pad row) at float32 and bf16,
+  against the same steps in this process: float32 losses within 1e-4
+  relative, parameters and running statistics within rel-RMSE 1e-3, their
+  change over the three steps (each state minus the initial one) within
+  1e-2 and 1e-3; bf16 within the drift bound 0.04, the parameters' change
+  within one process's bf16 change against its float32 one; every rank's
+  state bit-equal;
+  (b) ``main`` in train mode on the trainer's tri-modal fixture, 1 epoch +
+  validation, then a resume of 1 (from epoch 2): rank 0 alone writes,
+  every rank's state digest equals the ``.pth`` read back; (c) ``main`` in
+  test mode from it (10-crop, fused stem, fast consensus) on the
+  evaluation's fixture, 20 clips in global batches of 4, at float32 and
+  bf16 on R ranks and here: one JSON each, the same uid order, scores
+  within rel-RMSE 1e-3 (float32) and 0.04 (bf16); and here at bf16 with a
+  batch of 1 against 4. Per rank: step p50, the share of it in collectives (CUDA
+  events around every all-reduce), launches; global sustained clips/s. The
+  kernels line's launches are this path's, rank 0's (conv3x3's the
+  probe's).
 
 One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -203,11 +225,11 @@ CLASS_HEADS = (125, 352)  # verb, noun
 FUSION = 512
 # The evaluation path: 2 clips x 25 segments per batch, RGB and Flow
 # 10-cropped; videos x actions clips in each of its two annotation files
-# (40: cut from 200, then 100, to keep the whole smoke, RGB decode and the
-# fixture's JPEGs included, near half its limit), each
-# action spanning TEST_SPAN frames of its video.
+# (20: cut from 200, then 100, then 40, to keep the whole smoke, RGB decode,
+# the fixture's JPEGs and the multi-rank path included, near half its
+# limit), each action spanning TEST_SPAN frames of its video.
 TEST_BATCH = 2
-TEST_VIDEOS, TEST_ACTIONS, TEST_SPAN = 8, 5, 12
+TEST_VIDEOS, TEST_ACTIONS, TEST_SPAN = 4, 5, 12
 TEST_STEMS = (("RGB", 500), ("Flow", 500), ("Audio", 50))  # (modality, rows) of one forward's stems
 # Epic-Kitchens-55's frame size (H, W): the fixtures' RGB frames and Flow maps
 EK55_FRAME = (256, 456)
@@ -1651,12 +1673,12 @@ def evaluation_path(card: str, failures: list) -> dict:
     fused stem on all three towers, fast consensus and the challenge JSON,
     from a seeded {"model": state_dict} .pth; launch counts set to 0 just
     before main and read just after. Then main again on the same fixture and
-    .pth with the kernels off (tpu.fused_stem=false, tpu.use_pallas=false):
-    both challenge JSONs hold the same uids and their scores stay within
-    the bf16 drift bound. Then main with the kernels on and
-    tpu.native_io=false (cv2 and the Python WAV reader), whose scores must
-    agree too and whose clips/s stands beside the native decoder's. Returns
-    the launches."""
+    .pth with the kernels off (tpu.fused_stem=false, tpu.use_pallas=false)
+    over the labelled file: both challenge JSONs hold the same uids and
+    their scores stay within the bf16 drift bound. Then main with the
+    kernels on and tpu.native_io=false (cv2 and the Python WAV reader) over
+    the labelled file, whose scores must agree too and whose clips/s stands
+    beside the native decoder's. Returns the launches."""
     root = tempfile.mkdtemp(prefix=".smoke_fixture_",
                             dir=os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -1698,10 +1720,11 @@ def evaluation_path(card: str, failures: list) -> dict:
             failures.append(f"test path: fused_stem launched {launches['fused_stem']} times, "
                             f"not once per stem and batch ({len(TEST_STEMS)} x {batches})")
 
-        # the same fixture and .pth with every kernel off
-        plain_over = overrides + ["tpu.fused_stem=false", "tpu.use_pallas=false",
-                                  "test.results_file=[plain_labelled.json, plain_unlabelled.json]",
-                                  "exp_name=plain"]
+        # the same fixture and .pth with every kernel off (the labelled file)
+        labelled_only = ["test.annotation_file=[annotations/labelled.csv]"]
+        plain_over = overrides + labelled_only + [
+            "tpu.fused_stem=false", "tpu.use_pallas=false",
+            "test.results_file=[plain_labelled.json]", "exp_name=plain"]
         kernels.reset_launch_counts()
         plain_results = port_main.main(plain_over)
         plain_launches = sum(fn.launches for fn in kernels.WRAPPERS.values())
@@ -1713,8 +1736,8 @@ def evaluation_path(card: str, failures: list) -> dict:
         # the same run, kernels on, with tpu.native_io=false: RGB frames by
         # cv2.imread and WAV by the Python reader, the JAX package's A/B
         # switch; the loader's rate beside the native decoder's
-        cv2_over = overrides + ["tpu.native_io=false", "exp_name=cv2",
-                                "test.results_file=[cv2_labelled.json, cv2_unlabelled.json]"]
+        cv2_over = overrides + labelled_only + ["tpu.native_io=false", "exp_name=cv2",
+                                                "test.results_file=[cv2_labelled.json]"]
         cv2_results = port_main.main(cv2_over)
         torch.cuda.synchronize()
         cv2_throughput = run_log_lines(os.path.join(root, "out", "log", "cv2"),
@@ -1725,17 +1748,20 @@ def evaluation_path(card: str, failures: list) -> dict:
         files = {}
         for name in ("labelled.json", "unlabelled.json"):
             got = read_scores(os.path.join(root, "out", "inferences", name))
-            decoded_by_cv2 = read_scores(os.path.join(root, "out", "inferences", "cv2_" + name))
-            if sorted(decoded_by_cv2) != sorted(got):
-                failures.append(f"test path under tpu.native_io=false: {name} lacks uids")
-                continue
-            want = read_scores(os.path.join(root, "out", "inferences", "plain_" + name))
-            complete = (sorted(got) == sorted(uids) == sorted(want) and all(
+            complete = sorted(got) == sorted(uids) and all(
                 len(v) == 125 and len(n) == 352 and np.isfinite(v).all() and np.isfinite(n).all()
-                for v, n in got.values()))
+                for v, n in got.values())
             files[name] = {"uids": len(got), "complete": complete}
             if not complete:
                 failures.append(f"test path: {name} lacks uids or 125 / 352 finite scores")
+                continue
+            if name != "labelled.json":
+                continue  # the kernels-off and native_io=false runs read the labelled file
+            decoded_by_cv2 = read_scores(os.path.join(root, "out", "inferences", "cv2_" + name))
+            want = read_scores(os.path.join(root, "out", "inferences", "plain_" + name))
+            if not sorted(decoded_by_cv2) == sorted(want) == sorted(uids):
+                failures.append(f"test path: the kernels-off or tpu.native_io=false run's {name} "
+                                "lacks uids")
                 continue
             for h, head in enumerate(("verb", "noun")):
                 drift = rel_rmse(np.stack([got[u][h] for u in uids]),
@@ -1997,6 +2023,467 @@ def trainer_path(card: str, failures: list) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The multi-rank path: the port's data parallelism (parallel/mesh) through
+# torchrun, R = max(2, cards) ranks: one rank per card over NCCL, or two
+# ranks sharing one card over gloo. (a) three flagship train steps at full
+# width (12 x 3 global batches, seeded pretrained towers, tpu.pool_impl=
+# pallas; the third batch ragged, 11 true rows, so rank R-1 holds the pad
+# row) on R ranks and in this process, at float32 then bf16; (b) main in
+# train mode (the trainer's tri-modal JPEG fixture, 1 epoch + validation,
+# then a resume of 1); (c) main in test mode from its .pth on the evaluation
+# fixture's labelled file (20 clips; 10-crop, fused stem, fast consensus), at
+# float32 and bf16, on R ranks and in this process, and in this process at
+# bf16 with a batch of 1, which shows how far bf16 scores move with the
+# batch a forward holds alone.
+MULTI_RANK_STEPS = (12, 12, 11)  # true rows of each 12-clip global batch
+MULTI_RANK_LOSS_RTOL = 1e-4      # float32 losses, R ranks vs one process
+# float32 parameters and running statistics, R ranks vs one process, and the
+# test scores; the running statistics' change over the three steps (each
+# state minus the initial one); bf16: DRIFT_REL_RMSE
+MULTI_RANK_REL_RMSE = 1e-3
+# The parameters' change over the three steps is ~6e-5 of their norm, near
+# float32's spacing, and this process's own steps run twice differ in it
+# by ~1e-3 (the card's nondeterministic kernels): float32 holds it to 1e-2,
+# where a lost update reads 1 and a world-size factor 0.5; bf16 to one
+# process's bf16 change against its float32 one (bf16's own rounding).
+MULTI_RANK_CHANGE_REL_RMSE = 1e-2
+MULTI_RANK_TEST_BATCH = 4  # global clips a test batch: 5 batches of the 20 (R <= 4)
+MULTI_RANK_BATCH1_CLIPS = 8  # the bf16 batch-1 run reads the first 8 clips (time)
+# (b)'s fixture, the trainer's cut to 4 + 1 videos (20 + 5 clips; time): an
+# epoch is two global batches of 12, the second of 8
+MULTI_RANK_VIDEOS, MULTI_RANK_TRAIN_VIDEOS = 5, 4
+MULTI_RANK_KERNELS = ("max_pool", "pe_block", "mha", "fused_stem", "consensus_heads")
+MULTI_RANK_TIMEOUT_S = 900
+
+
+def multi_rank_batch(cfg, index: int, rank: int, world: int):
+    """This rank's rows of global batch ``index`` (numpy, seeded, the same
+    in every process): 12 clips x 3 segments of 224^2 RGB and Flow, 2.1 s
+    audio; rows past the true count repeat row 0, the loader's tail
+    padding."""
+    true_rows, rows = MULTI_RANK_STEPS[index], MULTI_RANK_STEPS[0]
+    rng = np.random.default_rng(1000 + index)
+    n, crop = int(cfg.train.num_segments), int(cfg.data.train_crop_size)
+    audio_len = int(cfg.data.audio.audio_length * cfg.data.audio.sampling_rate)
+    batch = {"RGB": rng.integers(0, 256, (true_rows, n, crop, crop, 3), dtype=np.uint8),
+             "Flow": rng.integers(0, 256, (true_rows, n, crop, crop,
+                                           2 * int(cfg.data.flow.win_length)), dtype=np.uint8),
+             "Audio": (rng.standard_normal((true_rows, n, audio_len)) * 0.1).astype(np.float32)}
+    targets = {k: rng.integers(0, c, true_rows).astype(np.int64)
+               for k, c in cfg.model.num_classes.items()}
+    local = rows // world
+    own = np.arange(rank * local, (rank + 1) * local) % rows
+    own = np.where(own < true_rows, own, 0)  # pad rows: copies of row 0
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x[own])).cuda()  # noqa: E731
+    return ({k: to(v) for k, v in batch.items()},
+            {"class": {k: to(v) for k, v in targets.items()}}, true_rows)
+
+
+def multi_rank_steps(weights_dir: str, dtype: str, device) -> tuple:
+    """The flagship's three train steps of MULTI_RANK_STEPS on this
+    process's rows (all of them in one process); returns (the initial and
+    the final state dict on the host, per-step records: global losses, host
+    ms to a synchronize, collective ms and count)."""
+    from attention_based_tbn_tpu_torch.models.builder import load_pretrained_towers
+    from attention_based_tbn_tpu_torch.parallel import mesh
+
+    cfg = load_config(overrides=["model.pretrained=true", f"model.weights_dir={weights_dir}",
+                                 "tpu.pool_impl=pallas", f"tpu.compute_dtype={dtype}"])
+    modality = get_modality(cfg)
+    model = build_model(cfg, modality, device=device)
+    load_pretrained_towers(cfg, modality, model, logging.getLogger("chip_smoke"))
+    state = create_train_state(cfg, model)
+    state.optimizer.set_learning_rate(lr_at_epoch(cfg, 0))
+    step = make_train_step(cfg)
+    initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    records = []
+    for index in range(len(MULTI_RANK_STEPS)):
+        batch, targets, true_rows = multi_rank_batch(cfg, index, mesh.rank(), mesh.world_size())
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with mesh.timed_collectives() as timer:
+            state, loss, _ = step(state, batch, targets, 0, true_rows)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - start) * 1e3
+            collective_ms = timer.ms()
+        records.append({"losses": {k: float(v) for k, v in loss.items()}, "step_ms": step_ms,
+                        "collective_ms": collective_ms, "collectives": timer.calls})
+    host = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del state, model
+    torch.cuda.empty_cache()
+    return initial, host, records
+
+
+def state_digest(state_dict: dict) -> str:
+    digest = hashlib.sha256()
+    for key in sorted(state_dict):
+        digest.update(key.encode())
+        digest.update(state_dict[key].detach().cpu().contiguous().reshape(-1)
+                      .view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def counting_main(argv_runs: list) -> list:
+    """The port's main once per argv, in this process; per run: its result
+    (losses and accuracies where labelled), the trainer's final state digest,
+    the digest of the .pth it wrote as read back (rank 0), the files this
+    process wrote, and the kernels' launches."""
+    from attention_based_tbn_tpu_torch.parallel import mesh
+    from attention_based_tbn_tpu_torch.tools import test as port_test
+
+    writes, states = [], []
+    write_replacing, save_scores = checkpoint._write_replacing, port_test.save_scores
+    run_trainer = port_train.run_trainer
+
+    def counted_write(path, *args):
+        writes.append(os.path.basename(path))
+        return write_replacing(path, *args)
+
+    def counted_scores(output, path, *args):
+        writes.append(os.path.basename(path))
+        return save_scores(output, path, *args)
+
+    def kept_trainer(*args, **kwargs):
+        states.append(run_trainer(*args, **kwargs))
+        return states[-1]
+
+    checkpoint._write_replacing, port_test.save_scores = counted_write, counted_scores
+    port_train.run_trainer = kept_trainer
+    runs = []
+    try:
+        for argv in argv_runs:
+            del writes[:], states[:]
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            results = port_main.main(list(argv))
+            torch.cuda.synchronize()
+            run = {"wall_s": time.perf_counter() - start, "writes": list(writes),
+                   "launches": launch_counts(),
+                   "results": [r[:2] if r else None for r in (results or [])]}
+            if states:
+                cfg = load_config(overrides=list(argv))
+                run["state_digest"] = state_digest(states[-1].model.state_dict())
+                run["step"] = states[-1].step
+                if mesh.is_primary():
+                    path = checkpoint_stem(cfg, get_modality(cfg)) + ".pth"
+                    run["file_digest"] = state_digest(checkpoint.read_state_dict(path))
+            runs.append(run)
+    finally:
+        checkpoint._write_replacing, port_test.save_scores = write_replacing, save_scores
+        port_train.run_trainer = run_trainer
+    return runs
+
+
+def multi_rank_worker(spec_path: str) -> int:
+    """One rank of the multi-rank path, under torchrun: (a) the flagship's
+    steps at float32 and bf16, (b) main in train mode and a resume, (c) main
+    in test mode at float32 and bf16; writes its record to ``<out>/rank<r>.json`` (and rank 0
+    its final float32 and bf16 states)."""
+    from attention_based_tbn_tpu_torch.parallel import mesh
+
+    logging.basicConfig(stream=sys.stderr, level=logging.WARNING, format="%(message)s")
+    spec = read_json(spec_path)
+    made = mesh.make_mesh(None, "cuda")
+    kernels.reset_launch_counts()
+    record = {"rank": made.rank, "world": made.world, "backend": made.backend,
+              "device": str(made.device), "shared_card": made.shared_card,
+              "describe": made.describe(), "card": torch.cuda.get_device_name(made.device)}
+    for dtype in ("float32", "bfloat16"):
+        _, state, steps = multi_rank_steps(spec["weights_dir"], dtype, made.device)
+        record[dtype] = {"steps": steps, "state_digest": state_digest(state)}
+        if made.is_primary():
+            torch.save(state, os.path.join(spec["out"], f"state_{dtype}.pt"))
+    record["step_launches"] = launch_counts()
+    record["main"] = counting_main(spec["main"])
+    record["test"] = counting_main(spec["test"])
+    with open(os.path.join(spec["out"], f"rank{made.rank}.json"), "w") as fh:
+        json.dump(record, fh)
+    mesh.shutdown()
+    return 0
+
+
+def run_torchrun(ranks: int, spec_path: str, log_path: str) -> float:
+    """This script's worker on ``ranks`` ranks through torchrun, in its own
+    process group (killed whole on timeout); raises on a failed rank."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={ranks}", os.path.abspath(__file__),
+           "--multi-rank-worker", spec_path]
+    start = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=MULTI_RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        with open(log_path, errors="replace") as fh:
+            sys.stderr.write(fh.read()[-6000:])
+        raise RuntimeError(f"multi-rank path: torchrun exited {proc.returncode}")
+    return seconds
+
+
+def state_rel_rmse(got: dict, want: dict, initial: dict, keys) -> tuple:
+    """(rel-RMSE of got's change from ``initial`` against want's change,
+    want's change relative to want): a state that did not move reads 1."""
+    num = sum(float((got[k].double() - want[k].double()).square().sum()) for k in keys)
+    change = sum(float((want[k].double() - initial[k].double()).square().sum()) for k in keys)
+    norm = sum(float(want[k].double().square().sum()) for k in keys)
+    return float(np.sqrt(num / max(change, 1e-30))), float(np.sqrt(change / max(norm, 1e-30)))
+
+
+def multi_rank_path(card: str, failures: list) -> dict:
+    """The multi-rank main path (see MULTI_RANK_STEPS): torchrun of this
+    script's worker on R ranks, then the one-process references here, the
+    gates and the numbers. Returns rank 0's launches over its whole run."""
+    ranks = max(2, torch.cuda.device_count())
+    root = tempfile.mkdtemp(prefix=".smoke_fixture_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        start = time.perf_counter()
+        train_root, test_root = os.path.join(root, "train"), os.path.join(root, "test")
+        write_trimodal_fixture(train_root, videos=MULTI_RANK_VIDEOS, actions=TRAINER_ACTIONS,
+                               frames=TEST_SPAN * TRAINER_ACTIONS, seed=9, flow_pickle=False)
+        names = [f"P{v + 1:02d}_01" for v in range(MULTI_RANK_VIDEOS)]
+        for split, vids in (("train", names[:MULTI_RANK_TRAIN_VIDEOS]),
+                            ("val", names[MULTI_RANK_TRAIN_VIDEOS:])):
+            with open(os.path.join(train_root, f"{split}_split.txt"), "w") as fh:
+                fh.write("\n".join(vids) + "\n")
+        write_trimodal_fixture(test_root, videos=TEST_VIDEOS, actions=TEST_ACTIONS,
+                               frames=TEST_SPAN * TEST_ACTIONS, seed=5, flow_pickle=True)
+        ann = os.path.join(test_root, "annotations")
+        with open(os.path.join(ann, "labelled.csv")) as fh:
+            head = fh.readlines()[:1 + MULTI_RANK_BATCH1_CLIPS]
+        with open(os.path.join(ann, "first.csv"), "w") as fh:
+            fh.writelines(head)
+        weights_dir = os.path.join(root, "weights")
+        write_pretrained(weights_dir, seed=4)
+        train_over = [
+            "model.pretrained=true", f"model.weights_dir={weights_dir}", "tpu.pool_impl=pallas",
+            "train.enable=true", "test.enable=false", "val.enable=true", "train.epochs=1",
+            f"data_dir={train_root}", f"out_dir={root}/out", "exp_name=ranks",
+            "data.flow.read_flow_pickle=false", "train.annotation_file=annotations/labelled.csv",
+            f"train.vid_list={train_root}/train_split.txt",
+            f"val.vid_list={train_root}/val_split.txt", f"val.batch_size={ranks}"]
+        cfg = load_config(overrides=train_over)
+        stem = checkpoint_stem(cfg, get_modality(cfg))
+
+        test_batch = max(MULTI_RANK_TEST_BATCH, ranks)
+
+        def test_over(exp, dtype, batch=test_batch, annotations="labelled"):
+            return [
+                "model.pretrained=false", "train.enable=false", "test.enable=true",
+                f"tpu.compute_dtype={dtype}",
+                f"data_dir={test_root}", f"out_dir={root}/out", f"exp_name={exp}",
+                "data.flow.read_flow_pickle=true", "data.flow.dir_prefix=flow_pickle",
+                "test.ten_crop=true", "test.save_results=true", "tpu.fused_stem=true",
+                "tpu.fast_consensus=true", f"test.pre_trained={stem}.pth",
+                f"test.annotation_file=[annotations/{annotations}.csv]",
+                f"test.results_file=[{exp}.json]", f"test.vid_list={test_root}/split.txt",
+                f"test.batch_size={batch}"]
+
+        dtypes = ("float32", "bfloat16")
+        spec = {"out": root, "weights_dir": weights_dir,
+                "main": [train_over, train_over + [f"train.pre_trained={stem}.pth"]],
+                "test": [test_over(f"ranks_{d}", d) for d in dtypes]}
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as fh:
+            json.dump(spec, fh)
+        setup_s = time.perf_counter() - start
+        torch.cuda.empty_cache()
+        torchrun_s = run_torchrun(ranks, spec_path, os.path.join(root, "torchrun.log"))
+        records = [read_json(os.path.join(root, f"rank{r}.json")) for r in range(ranks)]
+
+        # the one-process references, in this process (no process group)
+        start = time.perf_counter()
+        gates = {}
+        one_process = {}
+        for dtype in dtypes:
+            initial, want, want_steps = multi_rank_steps(weights_dir, dtype,
+                                                         torch.device("cuda"))
+            got = torch.load(os.path.join(root, f"state_{dtype}.pt"), weights_only=True)
+            params = [k for k in want if "running_" not in k and "num_batches" not in k
+                      and want[k].is_floating_point()]
+            stats = [k for k in want if "running_" in k]
+            losses = [max(abs(g - w) / abs(w) for k, w in ws["losses"].items()
+                          for g in [gs["losses"][k]])
+                      for gs, ws in zip(records[0][dtype]["steps"], want_steps)]
+            g = {"loss_rel": losses,
+                 "ranks_bit_equal": len({r[dtype]["state_digest"] for r in records}) == 1,
+                 "one_process_step_ms": [s["step_ms"] for s in want_steps]}
+            for name, keys in (("params", params), ("running_stats", stats)):
+                gap, change = state_rel_rmse(got, want, initial, keys)
+                g.update({f"{name}_change_rel_rmse": gap, f"{name}_change_of_norm": change,
+                          f"{name}_rel_rmse": gap * change})
+            # what the change's gap is made of without a second rank: float32,
+            # this process's steps again (the card's nondeterministic
+            # kernels); bf16, one process's bf16 change against its float32 one
+            if dtype == "float32":
+                _, again, _ = multi_rank_steps(weights_dir, dtype, torch.device("cuda"))
+                g["params_change_rel_rmse_one_process_again"] = state_rel_rmse(
+                    again, want, initial, params)[0]
+                del again
+            else:
+                g["params_change_rel_rmse_one_process_vs_float32"] = state_rel_rmse(
+                    want, one_process["float32"], initial, params)[0]
+            gates[dtype] = g
+            one_process[dtype] = want
+            del initial, got
+        del one_process
+        one_tests = counting_main([test_over(f"one_{d}", d) for d in dtypes]
+                                  + [test_over("one_bfloat16_batch1", "bfloat16", 1, "first")])
+        reference_s = time.perf_counter() - start
+
+        def scores(exp):
+            path = os.path.join(root, "out", "inferences", f"{exp}.json")
+            with open(path) as fh:
+                return list(json.load(fh)["results"]), read_scores(path)
+
+        def score_gap(got, want):
+            """Over got's uids, which must lead want's in the same order."""
+            (got_order, got_scores), (want_order, want_scores) = got, want
+            if not got_order or got_order != want_order[:len(got_order)]:
+                return None
+            return {head: rel_rmse(np.stack([got_scores[u][h] for u in got_order]),
+                                   np.stack([want_scores[u][h] for u in got_order]))
+                    for h, head in enumerate(("verb", "noun"))}
+
+        test_runs = {exp: scores(exp) for exp in [f"{w}_{d}" for w in ("ranks", "one")
+                                                   for d in dtypes] + ["one_bfloat16_batch1"]}
+        score_gaps = {d: score_gap(test_runs[f"ranks_{d}"], test_runs[f"one_{d}"])
+                      for d in dtypes}
+        # one process, bf16: a batch of 1 against the batch of test_batch
+        batch_gap = score_gap(test_runs["one_bfloat16_batch1"], test_runs["one_bfloat16"])
+        sustained = {exp: [line.split(" : ")[-1] for line in run_log_lines(
+            os.path.join(root, "out", "log", exp), "Inference throughput")] for exp in test_runs}
+        train_log = run_log_lines(os.path.join(root, "out", "log", "ranks"), "epoch no 2")
+
+        per_rank = []
+        for r in records:
+            steps = r["float32"]["steps"] + r["bfloat16"]["steps"]
+            per_rank.append({
+                "rank": r["rank"], "device": r["device"], "card": r["card"],
+                "step_ms_p50": {d: float(np.median([s["step_ms"] for s in r[d]["steps"]]))
+                                for d in ("float32", "bfloat16")},
+                "collective_share": {d: float(np.median([s["collective_ms"] / s["step_ms"]
+                                                         for s in r[d]["steps"]]))
+                                     for d in ("float32", "bfloat16")},
+                "collectives_per_step": steps[0]["collectives"],
+                "step_launches": r["step_launches"],
+                "main_launches": [m["launches"] for m in r["main"]],
+                "test_launches": [t["launches"] for t in r["test"]],
+                "digests": [r["float32"]["state_digest"][:12], r["bfloat16"]["state_digest"][:12]]
+                + [m["state_digest"][:12] for m in r["main"]],
+                "writes": [m["writes"] for m in r["main"] + r["test"]]})
+        first = records[0]
+        result = {
+            "phase": "multi_rank_path", "gpu": card, "ranks": ranks,
+            "backend": first["backend"], "shared_card": first["shared_card"],
+            "mesh": first["describe"], "setup_s": setup_s, "torchrun_s": torchrun_s,
+            "reference_s": reference_s, "gates": gates, "per_rank": per_rank,
+            "losses": {d: [s["losses"]["total"] for s in first[d]["steps"]]
+                       for d in ("float32", "bfloat16")},
+            "main_wall_s": [m["wall_s"] for m in first["main"]],
+            "test_batch": test_batch, "test_wall_s": [t["wall_s"] for t in first["test"]],
+            "one_process_test_wall_s": [t["wall_s"] for t in one_tests],
+            "test_score_rel_rmse": score_gaps, "bf16_batch1_vs_batch_rel_rmse": batch_gap,
+            "test_uids": len(test_runs["one_float32"][0]), "throughput_log": sustained,
+            "resume_log": [line.split(" : ")[-1] for line in train_log],
+            "test_results": [t["results"] for t in first["test"]],
+            "one_test_results": [t["results"] for t in one_tests],
+        }
+        emit(result)
+        print(f"multi-rank path: {ranks} ranks, backend {first['backend']}"
+              f"{' (ranks share one card)' if first['shared_card'] else ''}; {card}", flush=True)
+        for r in per_rank:
+            print(f"multi-rank path: rank {r['rank']} state digests (fp32 / bf16 steps, "
+                  f"main train / resume) {r['digests']}; the .pth read back "
+                  f"{[m.get('file_digest', '')[:12] for m in first['main']]}", flush=True)
+            print(f"multi-rank path: rank {r['rank']} on {r['device']}: step p50 "
+                  f"{r['step_ms_p50']['float32']:.1f} ms fp32 / "
+                  f"{r['step_ms_p50']['bfloat16']:.1f} ms bf16, collectives "
+                  f"{100 * r['collective_share']['float32']:.1f}% / "
+                  f"{100 * r['collective_share']['bfloat16']:.1f}% of it "
+                  f"({r['collectives_per_step']} a step); launches {r['step_launches']}",
+                  flush=True)
+        for dtype, g in gates.items():
+            floor = {k: v for k, v in g.items() if "_one_process_" in k}
+            print(f"multi-rank path, {dtype}: loss rel {max(g['loss_rel']):.3g}; params "
+                  f"rel-RMSE {g['params_rel_rmse']:.3g}, running stats "
+                  f"{g['running_stats_rel_rmse']:.3g}; the change of the params rel-RMSE "
+                  f"{g['params_change_rel_rmse']:.3g} (the change "
+                  f"{g['params_change_of_norm']:.3g} of their norm; {floor}), of the running "
+                  f"stats {g['running_stats_change_rel_rmse']:.3g} "
+                  f"({g['running_stats_change_of_norm']:.3g}); ranks bit-equal "
+                  f"{g['ranks_bit_equal']}", flush=True)
+        print(f"multi-rank path: test scores rel-RMSE, {ranks} ranks vs one process at batch "
+              f"{test_batch}: {score_gaps}; one process, bf16, batch 1 vs {test_batch}: "
+              f"{batch_gap}", flush=True)
+        for exp, lines in sustained.items():
+            for line in lines:
+                print(f"multi-rank path: test {exp}, {line}", flush=True)
+
+        # the gates
+        for dtype, bound in (("float32", MULTI_RANK_REL_RMSE), ("bfloat16", DRIFT_REL_RMSE)):
+            g = gates[dtype]
+            loss_bound = MULTI_RANK_LOSS_RTOL if dtype == "float32" else DRIFT_REL_RMSE
+            if not max(g["loss_rel"]) < loss_bound:
+                failures.append(f"multi-rank {dtype}: step losses {g['loss_rel']} vs one "
+                                f"process >= {loss_bound}")
+            change_bounds = {"params": MULTI_RANK_CHANGE_REL_RMSE, "running_stats": bound}
+            if dtype == "bfloat16":  # bf16's own rounding of the change
+                change_bounds["params"] = g["params_change_rel_rmse_one_process_vs_float32"]
+            for name, change_bound in change_bounds.items():
+                for key, limit in ((f"{name}_rel_rmse", bound),
+                                   (f"{name}_change_rel_rmse", change_bound)):
+                    if not g[key] < limit:
+                        failures.append(f"multi-rank {dtype}: {key} {g[key]} >= {limit}")
+            if not g["ranks_bit_equal"]:
+                failures.append(f"multi-rank {dtype}: the ranks' states differ")
+        for i, name in enumerate(("train", "resume")):
+            digests = {r["main"][i]["state_digest"] for r in records}
+            if len(digests) != 1 or first["main"][i].get("file_digest") not in digests:
+                failures.append(f"multi-rank main {name}: rank digests {digests}, file "
+                                f"{first['main'][i].get('file_digest')}")
+            writes = [r["main"][i]["writes"] for r in records]
+            if any(writes[1:]) or not writes[0]:
+                failures.append(f"multi-rank main {name}: files written per rank {writes}")
+        if not train_log:
+            failures.append("multi-rank main: the resume did not continue from epoch 2")
+        for i, dtype in enumerate(dtypes):
+            writes = [r["test"][i]["writes"] for r in records]
+            if any(writes[1:]) or writes[0] != [f"ranks_{dtype}.json"]:
+                failures.append(f"multi-rank test {dtype}: files written per rank {writes}")
+            order = test_runs[f"ranks_{dtype}"][0]
+            if score_gaps[dtype] is None or order != test_runs[f"one_{dtype}"][0] \
+                    or len(order) != TEST_VIDEOS * TEST_ACTIONS:
+                failures.append(f"multi-rank test {dtype}: uid order {order} vs one process "
+                                f"{test_runs[f'one_{dtype}'][0]}")
+                continue
+            bound = MULTI_RANK_REL_RMSE if dtype == "float32" else DRIFT_REL_RMSE
+            if not all(v < bound for v in score_gaps[dtype].values()):
+                failures.append(f"multi-rank test {dtype}: scores rel-RMSE {score_gaps[dtype]} "
+                                f"vs one process >= {bound}")
+        for r in records:
+            ran = {name: r["step_launches"][name] + sum(m["launches"][name]
+                                                        for m in r["main"] + r["test"])
+                   for name in MULTI_RANK_KERNELS}
+            ran["max_pool_backward"] = r["step_launches"]["max_pool_backward"]
+            for name, count in ran.items():
+                if count < 1:
+                    failures.append(f"multi-rank path: kernel {name} not launched on rank "
+                                    f"{r['rank']}")
+        totals = {name: first["step_launches"][name] + sum(m["launches"][name]
+                                                          for m in first["main"] + first["test"])
+                  for name in kernels.WRAPPERS}
+        return totals
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # The export path: the flagship with five kernels inside its programs.
 EXPORT_OVERRIDES = ["tpu.fused_stem=true", "tpu.fast_consensus=true", "tpu.pool_impl=pallas"]
 EXPORT_OPS = {"pe_block": ("tbn::pe_block", "tbn::pe_block_bf16"), "mha": ("tbn::mha",),
@@ -2183,7 +2670,7 @@ def export_path(card: str, failures: list) -> dict:
 ARCH_OVERRIDES = ["model.attention.enable=false", "tpu.fast_consensus=true"]
 RESNET_OVERRIDES = ["model.arch=resnet", "model.resnet.depth=101"] + ARCH_OVERRIDES
 VGG_OVERRIDES = ["model.arch=vgg", "model.vgg.type=16"] + ARCH_OVERRIDES
-ARCH_TEST_VIDEOS, ARCH_TEST_ACTIONS = 4, 5  # clips per annotation file: 20
+ARCH_TEST_VIDEOS, ARCH_TEST_ACTIONS = 2, 5  # clips per annotation file: 10 (cut from 20: time)
 ARCH_TRAIN_BATCHES = [12] * 6  # two warm-ups, four timed steps
 
 
@@ -2427,10 +2914,14 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None, help="also append every JSON line to this file")
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
+    parser.add_argument("--multi-rank-worker", metavar="SPEC", default=None,
+                        help="(internal) one rank of the multi-rank path, under torchrun")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.multi_rank_worker:
+        return multi_rank_worker(args.multi_rank_worker)
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(message)s")
     _LOG = args.out
     if _LOG:
@@ -2592,9 +3083,14 @@ def main(argv=None) -> int:
     # the ResNet and VGG towers: consensus_heads at F = 512 on each part
     for part, counts in arch_path(card, failures).items():
         emit({"phase": "launches", "path": f"arch/{part}", **counts})
-    # launches: this slice's main path, the export's bundles serving, for
+
+    # data parallelism: the flagship's steps, main's train and test modes
+    # on R ranks under torchrun, against one process
+    multi_rank_launches = multi_rank_path(card, failures)
+    emit({"phase": "launches", "path": "multi_rank (rank 0)", **multi_rank_launches})
+    # launches: this slice's main path, the multi-rank path's rank 0, for
     # the kernels it runs; conv3x3 runs on the probe's path only
-    launches = {name: export_launches[name] for name in EXPORT_OPS}
+    launches = {name: multi_rank_launches[name] for name in MULTI_RANK_KERNELS}
     launches["conv3x3"] = probe_launches["conv3x3"]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
