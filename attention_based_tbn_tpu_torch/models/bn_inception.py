@@ -31,6 +31,21 @@ weights rounded to the compute type and a float32 bias, as the JAX package
 gates it (bn_inception.py:563-589). Training, the audio stem and other
 shapes keep the regular stem and pool1.
 
+``quantize`` (``tpu.quantize``, eval only; training ignores it, as the
+JAX package does): "calibrate" runs the float eval and records the running
+max of |x| at each of the tower's 42 int8 sites (:data:`QUANT_SITES`, the
+JAX package's quant_stats paths) into a non-persistent buffer; "int8" runs
+the JAX package's quantized ``_fused_eval`` (bn_inception.py:349-476) on
+the int8 kernels (layers.qconv_site): conv2_3x3_reduce and conv2_3x3, and
+in each block one merged 1x1 conv over the block input in the JAX column
+order [pool_proj / 9 (bias-free; avg blocks) | 1x1 | 3x3_reduce |
+double_3x3_reduce], the three 3x3 convs, the avg branch as the 9-tap sum
+of its projection (project first, pool after: under int8 the two orders
+quantize different tensors) + bias + ReLU, and inception_5b's max branch
+proj on the pooled input with the block's in_amax. The stem stays float
+and the fused stem off. An int8 forward without calibrated amaxes raises;
+the buffers stay out of the state dict.
+
 Modules are flat attributes named as in the reference state dict
 (``conv1_7x7_s2`` + ``conv1_7x7_s2_bn``, ``inception_3a_1x1`` + ``..._bn``),
 so weights in the reference ``.pth`` layout load with ``strict=True``.
@@ -46,7 +61,7 @@ has a (3,1) kernel and vice versa).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -54,7 +69,9 @@ import torch.nn.functional as F
 
 from ..ops.kernels import fused_stem, fused_stem_shape_error
 from ..ops.pooling import avg_pool2d, global_avg_pool, max_pool2d
-from .layers import BN_EPSILON, FoldCache, batch_norm_train, variance_scaling_
+from .layers import (BN_EPSILON, QUANT_MODES, CastCache, FoldCache, batch_norm_train,
+                     conv_bn_sources, exact_div, fold, qconv_operands, qconv_site, record_amax,
+                     variance_scaling_)
 
 
 @dataclass(frozen=True)
@@ -88,6 +105,18 @@ BN_INCEPTION_BLOCKS: Tuple[Tuple[str, InceptionSpec], ...] = (
 
 FEATURE_SIZE = 1024
 
+# The int8 sites of a tower (``tpu.quantize``) by their path under the tower
+# in the JAX package's quant_stats tree: one amax per conv2 cell, four per
+# block. The stem is never quantized.
+BLOCK_QUANT_SITES = ("in_amax", "r3_amax", "rd_amax", "d_amax")
+QUANT_SITES = ("conv2_3x3_reduce/amax", "conv2_3x3/amax") + tuple(
+    f"{name}/{site}" for name, _ in BN_INCEPTION_BLOCKS for site in BLOCK_QUANT_SITES)
+
+
+def quant_buffer(site: str) -> str:
+    """The tower's (non-persistent) buffer of a quant_stats site."""
+    return "quant_" + site.replace("/", "_")
+
 
 class BNInception(nn.Module):
     """BN-Inception tower; ``forward`` runs the eval graph or, in training
@@ -97,14 +126,18 @@ class BNInception(nn.Module):
 
     def __init__(self, in_channels: int, freq_pool_only: bool = False,
                  audio_stem: bool = False, pool_impl: str = "reduce_window",
-                 fused_stem: bool = False, pool_fast_vjp: bool = False):
+                 fused_stem: bool = False, pool_fast_vjp: bool = False, quantize: str = ""):
         super().__init__()
+        if quantize not in QUANT_MODES:
+            raise ValueError(f"Unknown quantize mode {quantize!r}")
+        self.quantize = quantize
         self.freq_pool_only = freq_pool_only
         self.audio_stem = audio_stem
         self.pool_impl = pool_impl
         self.pool_fast_vjp = pool_fast_vjp
         self.fused_stem = fused_stem
         self._folded = FoldCache()
+        self._quantized = CastCache()  # int8 operands per site and source version
         if audio_stem:
             self._conv_bn("conv1_1x3_s2", in_channels, 32, (3, 1), 2, (1, 0))
             self._conv_bn("conv1_3x1_s2", in_channels, 32, (1, 3), 2, (0, 1))
@@ -153,9 +186,120 @@ class BNInception(nn.Module):
         return F.relu(F.conv2d(x, w, b, conv.stride, conv.padding), inplace=True)
 
     def uses_fused_stem(self, x: torch.Tensor) -> bool:
-        """Whether the fused stem takes NCHW ``x`` in the current mode."""
+        """Whether the fused stem takes NCHW ``x`` in the current mode (not
+        under ``quantize``, as in the JAX package)."""
         return (self.fused_stem and not self.training and not self.audio_stem
-                and not fused_stem_shape_error(x.permute(0, 2, 3, 1)))
+                and not self.quantize and not fused_stem_shape_error(x.permute(0, 2, 3, 1)))
+
+    # ---------------------------------------------------------- int8 sites
+
+    def _mode(self) -> str:
+        """This forward's quantize mode: training ignores it."""
+        return "" if self.training else self.quantize
+
+    def quant_stats(self) -> Dict[str, torch.Tensor]:
+        """{site: amax} of the recorded sites of :data:`QUANT_SITES`."""
+        return {site: self._buffers[quant_buffer(site)] for site in QUANT_SITES
+                if quant_buffer(site) in self._buffers}
+
+    @torch.no_grad()
+    def set_quant_stat(self, site: str, amax) -> None:
+        """Set one site's amax (a float32 scalar on the tower's device)."""
+        if site not in QUANT_SITES:
+            raise KeyError(f"{site!r} is not an int8 site of BN-Inception")
+        value = torch.tensor(float(amax), dtype=torch.float32)
+        name = quant_buffer(site)
+        if name in self._buffers:
+            self._buffers[name].copy_(value)
+        else:
+            device = self.conv2_3x3.weight.device
+            self.register_buffer(name, value.to(device).clone(), persistent=False)
+
+    def _record(self, site: str, x: torch.Tensor) -> None:
+        """Under "calibrate", fold max |x| into the site's running amax."""
+        if self._mode() != "calibrate":
+            return
+        name = quant_buffer(site)
+        if name not in self._buffers:
+            self.register_buffer(name, torch.zeros((), device=x.device), persistent=False)
+        record_amax(self._buffers[name], x)
+
+    def _q_operands(self, key: str, cells: Sequence[str], site: str, proj_first: bool = False):
+        """The int8 operands of the site that convolves with ``cells``' float32
+        folds concatenated along the output channels, at ``site``'s scale;
+        ``proj_first``: the first cell is the avg branch's proj, taken / 9
+        and bias-free (its bias is added after the 9-tap sum). Cached per
+        version of every source (the amax included)."""
+        amax = self._buffers.get(quant_buffer(site))
+        if amax is None:
+            raise ValueError(f"tpu.quantize=int8: no quant_stats for {site}: run "
+                             "models.tbn.calibrate_quantization before the int8 forward")
+        pairs = [(getattr(self, c), getattr(self, f"{c}_bn")) for c in cells]
+        sources = tuple(t for conv, bn in pairs for t in conv_bn_sources(conv, bn))
+
+        def make(*tensors):
+            folds = [fold(*tensors[6 * i:6 * i + 6], bn.eps) for i, (_, bn) in enumerate(pairs)]
+            if proj_first:
+                kproj, bproj = folds[0]
+                folds[0] = (exact_div(kproj, 9.0), torch.zeros_like(bproj))
+            return qconv_operands(folds, tensors[-1])
+
+        return self._quantized.derive(key, sources + (amax,), torch.float32, make)
+
+    def _qcbr(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A conv2 cell at int8: conv + BN folded + ReLU."""
+        conv = getattr(self, name)
+        operands = self._q_operands(name, (name,), f"{name}/amax")
+        return qconv_site(x, operands, conv.stride[0], conv.padding[0])
+
+    def _proj_sum(self, name: str, proj: torch.Tensor) -> torch.Tensor:
+        """The avg branch after the merged conv: the 9-tap zero-padded sum of
+        its / 9 projection in the compute dtype, in the JAX package's tap
+        order (ops/pooling.py:_pool_via_slices), + the proj's float32 fold
+        bias rounded to the dtype, ReLU."""
+        cell = f"{name}_pool_proj"
+        _, bias = self._folded.get(f"{cell}/bias", getattr(self, cell),
+                                   getattr(self, f"{cell}_bn"), torch.float32, proj.dtype)
+        h, w = proj.shape[2:]
+        padded = F.pad(proj, (1, 1, 1, 1))
+        total = None
+        for dy in range(3):
+            for dx in range(3):
+                tap = padded[:, :, dy:dy + h, dx:dx + w]
+                total = tap if total is None else total + tap
+        return F.relu(total + bias.view(1, -1, 1, 1))
+
+    def _qblock(self, name: str, s: InceptionSpec, x: torch.Tensor) -> torch.Tensor:
+        """One block at int8 (the JAX package's quantized _fused_eval)."""
+        merge_proj = bool(s.proj) and s.pool == "avg"
+        cells = [f"{name}_{c}" for c in (["pool_proj"] if merge_proj else [])
+                 + (["1x1"] if s.b1x1 else []) + ["3x3_reduce", "double_3x3_reduce"]]
+        sizes = [getattr(self, c).out_channels for c in cells]
+        operands = self._q_operands(f"{name}/in", cells, f"{name}/in_amax", merge_proj)
+        merged = qconv_site(x, operands, 1, 0, relu_from=sizes[0] if merge_proj else 0)
+        parts = list(torch.split(merged, sizes, dim=1))
+        proj = parts.pop(0) if merge_proj else None
+        branches = [parts.pop(0)] if s.b1x1 else []
+        r3, rd = parts
+
+        def conv3x3(cell, inp, site, stride):
+            cell = f"{name}_{cell}"
+            return qconv_site(inp, self._q_operands(cell, (cell,), f"{name}/{site}"), stride, 1)
+
+        branches.append(conv3x3("3x3", r3, "r3_amax", s.stride))
+        d = conv3x3("double_3x3_1", rd, "rd_amax", 1)
+        branches.append(conv3x3("double_3x3_2", d, "d_amax", s.stride))
+        if merge_proj:
+            branches.append(self._proj_sum(name, proj))
+        elif s.proj:
+            # the max branch: a 3x3 / stride-1 max pool covers every element,
+            # so amax(pooled) == amax(x): the proj takes the block's in_amax
+            cell = f"{name}_pool_proj"
+            operands = self._q_operands(cell, (cell,), f"{name}/in_amax")
+            branches.append(qconv_site(self._max_pool(x, 1, 1), operands, 1, 0))
+        else:
+            branches.append(self._max_pool(x, s.stride, 0))
+        return torch.cat(branches, dim=1)
 
     def _fused_stem(self, x: torch.Tensor, dtype: torch.dtype,
                     input_scale: Optional[torch.Tensor],
@@ -176,14 +320,23 @@ class BNInception(nn.Module):
 
     def _block(self, name: str, s: InceptionSpec, x: torch.Tensor,
                row_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        if self._mode() == "int8":
+            return self._qblock(name, s, x)
+
         def cbr(cell, inp):
             return self._cbr(f"{name}_{cell}", inp, row_mask)
 
+        def record(site, inp):
+            self._record(f"{name}/{site}", inp)
+            return inp
+
         branches = []
+        record("in_amax", x)
         if s.b1x1:
             branches.append(cbr("1x1", x))
-        branches.append(cbr("3x3", cbr("3x3_reduce", x)))
-        branches.append(cbr("double_3x3_2", cbr("double_3x3_1", cbr("double_3x3_reduce", x))))
+        branches.append(cbr("3x3", record("r3_amax", cbr("3x3_reduce", x))))
+        d = record("d_amax", cbr("double_3x3_1", record("rd_amax", cbr("double_3x3_reduce", x))))
+        branches.append(cbr("double_3x3_2", d))
         if s.proj:
             if s.pool == "avg":
                 pooled = avg_pool2d(x, 3, 1, 1, ceil_mode=True, count_include_pad=True)
@@ -217,7 +370,13 @@ class BNInception(nn.Module):
             else:
                 y = self._cbr("conv1_7x7_s2", x, row_mask)
             y = self._max_pool(y, 2, 0)
-        y = self._cbr("conv2_3x3", self._cbr("conv2_3x3_reduce", y, row_mask), row_mask)
+        self._record("conv2_3x3_reduce/amax", y)
+        if self._mode() == "int8":
+            y = self._qcbr("conv2_3x3", self._qcbr("conv2_3x3_reduce", y))
+        else:
+            y = self._cbr("conv2_3x3_reduce", y, row_mask)
+            self._record("conv2_3x3/amax", y)
+            y = self._cbr("conv2_3x3", y, row_mask)
         y = self._max_pool(y, 2, 0)
         for name, s in BN_INCEPTION_BLOCKS:
             y = self._block(name, s, y, row_mask)

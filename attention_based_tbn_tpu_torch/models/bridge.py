@@ -23,6 +23,10 @@ ResNet and VGG towers in torchvision's layout under ``Base_<m>.model.``
 * :func:`kernel_keys` — the state-dict keys whose tensors are images of
   JAX ``kernel`` leaves (conv and dense weights: what the serving export
   quantizes or casts).
+* :func:`quant_stats_to_jax` / :func:`load_quant_stats` — the towers'
+  calibrated int8 amaxes (``tpu.quantize``) <-> the JAX package's separate
+  ``quant_stats`` collection (``Base_<m>/conv2_3x3_reduce/amax``,
+  ``Base_<m>/inception_3a/in_amax``, ...); the state dict holds none.
 * :func:`conv3x3_weight_from_jax` / :func:`conv3x3_weight_to_jax` — one
   3x3 conv kernel, HWIO (3, 3, C_in, C_out) <-> torch's (C_out, C_in, 3,
   3), for the fused-block probe's convolution (``ops/kernels.conv3x3``).
@@ -394,6 +398,25 @@ def kernel_keys(state_dict: Mapping[str, Any]) -> set:
 
     walk(state_dict_to_jax(tagged)["params"])
     return found
+
+
+def quant_stats_to_jax(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The towers' recorded int8 amaxes -> the JAX package's ``quant_stats``
+    tree, float32 scalars (empty before calibration)."""
+    tree: Dict[str, Dict] = {}
+    for name, tower in model.named_children():
+        for site, amax in getattr(tower, "quant_stats", dict)().items():
+            _set(tree, [name] + site.split("/"), np.asarray(amax.detach().cpu().numpy(),
+                                                            dtype=np.float32))
+    return tree
+
+
+def load_quant_stats(model: torch.nn.Module, quant_stats: Mapping[str, Any]) -> None:
+    """The JAX package's ``quant_stats`` tree -> the towers' int8 amaxes."""
+    for tower, cells in quant_stats.items():
+        for cell, leaves in cells.items():
+            for leaf, value in leaves.items():
+                getattr(model, tower).set_quant_stat(f"{cell}/{leaf}", np.asarray(value))
 
 
 def conv3x3_weight_from_jax(kernel_hwio) -> np.ndarray:

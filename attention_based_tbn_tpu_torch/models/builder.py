@@ -34,9 +34,9 @@ PRETRAINED_STEMS = {"RGB": "imagenet_bninception_rgb", "Audio": "imagenet_bnince
 
 def check_config(cfg) -> None:
     """The JAX package's arch / loss choices: an unknown arch or loss, and a
-    prior-loss name as the head loss, are refused. (``tpu.quantize`` and
-    audio attention on a ResNet or VGG tower are refused by
-    ``TBNSpec.validate``.)"""
+    prior-loss name as the head loss, are refused. (Audio attention on a
+    ResNet or VGG tower is refused by ``TBNSpec.validate``, ``tpu.quantize``
+    by :func:`build_model`.)"""
     if cfg.model.arch not in _MODEL_TYPES:
         raise ValueError(f"Model type '{cfg.model.arch}' not supported")
     if cfg.model.loss_fn not in _LOSS_TYPES:
@@ -57,7 +57,17 @@ def build_model(cfg, modality: List[str], device="cuda", seed: int = None) -> TB
     the CPU."""
     device = resolve_device(device)
     check_config(cfg)
-    model = TBNModel(TBNSpec.from_config(cfg, modality))
+    spec = TBNSpec.from_config(cfg, modality)
+    spec.validate()
+    if spec.quantize:
+        # the JAX package's refusal (models/builder.py:41-52): the drivers
+        # carry no calibrated amaxes; the int8 towers are API-only
+        raise ValueError(
+            "tpu.quantize is an opt-in serving mode, not a driver mode: build the model "
+            "directly and calibrate via models.tbn.calibrate_quantization; unset "
+            "tpu.quantize for train/test/export"
+        )
+    model = TBNModel(spec)
     seed = int(cfg.data.manual_seed if seed is None else seed)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -18,13 +18,17 @@ ported.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops import kernels
 from ..parallel import mesh
 from ..utils.device import tracing
 
@@ -43,19 +47,155 @@ def compute_dtype(name: str) -> torch.dtype:
     return COMPUTE_DTYPES[name]
 
 
+def fold(weight, bias, gamma, beta, mean, var, eps: float = BN_EPSILON
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BN(conv(x, W) + b) on running statistics == conv(x, W*s) + (b*s + o)
+    with s = rsqrt(var + eps) * gamma, o = beta - mean*s, in the order of
+    the JAX package's FoldedConvBN (layers.py:498-500), in the sources'
+    type (float32)."""
+    s = torch.rsqrt(var + eps) * gamma
+    return weight * s[:, None, None, None], bias * s + (beta - mean * s)
+
+
 def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
                  bias_dtype: torch.dtype = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """BN(conv(x, W) + b) on running statistics == conv(x, W*s) + (b*s + o)
-    with s = gamma / sqrt(var + eps), o = beta - mean*s; folded in float32,
-    the kernel returned in ``dtype``, the bias in ``bias_dtype`` (default
-    ``dtype``). The caller turns autograd off: toggling it here would put a
-    grad-mode region per convolution into an exported graph, which
-    ``torch.export`` then inlines one by one (minutes at this model's 70
-    convolutions a tower)."""
-    s = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    w = conv.weight * s[:, None, None, None]
-    b = conv.bias * s + (bn.bias - bn.running_mean * s)
+    """:func:`fold` of a conv and its BatchNorm in float32, the kernel
+    returned in ``dtype``, the bias in ``bias_dtype`` (default ``dtype``).
+    The caller turns autograd off: toggling it here would put a grad-mode
+    region per convolution into an exported graph, which ``torch.export``
+    then inlines one by one (minutes at this model's 70 convolutions a
+    tower)."""
+    w, b = fold(conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                bn.eps)
     return w.to(dtype), b.to(bias_dtype or dtype)
+
+
+def conv_bn_sources(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, ...]:
+    """The six tensors :func:`fold` reads, in its argument order."""
+    return (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+
+
+# ------------------------------------------------------------ int8 sites
+#
+# Post-training int8 inference (tpu.quantize), the JAX package's
+# conv2d_apply_q / route_qconv (layers.py:54-128): "calibrate" records the
+# running max of |x| at each conv site into its amax, "int8" convolves the
+# int8 activation, quantized with the per-tensor scale max(amax, 1e-6) /
+# 127, with the int8 per-output-channel quantized BN-folded float32 kernel
+# (ops/kernels.quantize, ops/kernels.qconv). Divisions divide by tensors:
+# on a card torch divides by a Python scalar through its reciprocal, which
+# can differ from the JAX package's division in the last bit.
+
+QUANT_MODES = ("", "calibrate", "int8")
+
+
+def exact_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    return x / x.new_full((), divisor)
+
+
+def quantize_weight(kf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float32 (C_out, C_in, KH, KW) kernel -> (int8 (C_out, KH, KW, C_in)
+    contiguous, float32 (C_out,) s_k): s_k = max(max |kf| over C_in, KH, KW
+    / 127, 1e-12), kq = clip(round(kf / s_k), -127, 127), as
+    ``conv2d_apply_q`` (layers.py:86-87)."""
+    s_k = exact_div(kf.abs().amax(dim=(1, 2, 3)), 127.0).clamp_min(1e-12)
+    kq = torch.round(kf / s_k[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
+    return kq.permute(0, 2, 3, 1).contiguous(), s_k
+
+
+def activation_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The calibrated per-tensor scale max(amax, 1e-6) / 127 as a
+    one-element float32 tensor on amax's device (route_qconv)."""
+    return exact_div(amax.float().clamp_min(1e-6), 127.0).reshape(1)
+
+
+def qconv_operands(pairs, amax: torch.Tensor):
+    """The operands of one int8 site from its folded float32 (kernel, bias)
+    pairs, concatenated along the output channels in order (a merged 1x1
+    site), and its amax: (int8 weight, scale = s_k * x_scale, float32 bias,
+    x_scale). Made once per version of the sources
+    (``CastCache.derive``)."""
+    w8, s_k = quantize_weight(torch.cat([k for k, _ in pairs]))
+    x_scale = activation_scale(amax)
+    return w8, s_k * x_scale, torch.cat([b for _, b in pairs]).contiguous(), x_scale
+
+
+_site_record = None  # a list while recording_sites() is open
+
+
+@contextlib.contextmanager
+def recording_sites():
+    """Collect each int8 site that runs inside, in order, as (x, x_scale,
+    the arguments :func:`qconv_site` hands ``kernels.qconv``): the sites a
+    forward ran, to hold the kernels against their plain versions on
+    them."""
+    global _site_record
+    sites = []
+    _site_record = sites
+    try:
+        yield sites
+    finally:
+        _site_record = None
+
+
+def qconv_site(x: torch.Tensor, operands, stride: int, padding: int,
+               relu_from: int = 0) -> torch.Tensor:
+    """One int8 conv site on NCHW ``x`` (its compute dtype kept): quantize
+    with the site's scale, the s8 convolution, dequantize + bias, ReLU on
+    the output channels from ``relu_from`` on."""
+    w8, scale, bias, x_scale = operands
+    args = (kernels.quantize(x, x_scale), w8, scale, bias, stride, padding, relu_from, x.dtype)
+    if _site_record is not None:
+        _site_record.append((x, x_scale, args))
+    return kernels.qconv(*args)
+
+
+@torch.no_grad()
+def record_amax(amax: torch.Tensor, x: torch.Tensor) -> None:
+    """Fold max |x| (float32) into the running max ``amax`` in place, on
+    x's device (no host sync): a calibration site (route_qconv)."""
+    torch.maximum(amax, x.abs().amax().float(), out=amax)
+
+
+# ------------------------------------------------------- rematerialization
+
+_remat = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether the running forward is a rematerialized tower's recompute in
+    the backward (:func:`rematerialized`)."""
+    return getattr(_remat, "active", False)
+
+
+def rematerialized(fn, *args, generator: torch.Generator = None):
+    """``fn(*args)`` whose activations are recomputed in the backward
+    instead of kept (``torch.utils.checkpoint``, non-reentrant), as the
+    JAX package's ``nn.remat`` of a tower (models/tbn.py:303-311). The
+    recompute must be the forward again and change nothing: it runs with
+    :func:`recomputing` true, so :func:`batch_norm_train` updates the
+    running statistics once, in the forward (its all-reduce still runs on
+    every rank); and ``generator`` (the dropout's explicit source, which
+    checkpoint's own RNG stash does not cover) is set back to its state at
+    the forward's start for the recompute and restored after it, so the
+    recompute draws the forward's masks."""
+    start = None if generator is None else generator.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        resume = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(start)
+        _remat.active = True
+        try:
+            yield
+        finally:
+            _remat.active = False
+            if generator is not None:
+                generator.set_state(resume)
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
 class FoldCache:
@@ -74,9 +214,8 @@ class FoldCache:
             bias_dtype: torch.dtype = None):
         if tracing():
             return fold_conv_bn(conv, bn, dtype, bias_dtype)
-        sources = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
-                   bn.running_var)
-        key = (dtype, bias_dtype) + tuple((t.data_ptr(), t._version) for t in sources)
+        key = (dtype, bias_dtype) + tuple((t.data_ptr(), t._version)
+                                          for t in conv_bn_sources(conv, bn))
         hit = self._entries.get(name)
         if hit is None or hit[0] != key:
             with torch.no_grad():
@@ -150,7 +289,9 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mean_offset: torch.Ten
       differentiable all-reduce (its backward sums their gradients), so
       every rank normalizes and updates its running statistics alike. A
       row mask on one process takes the same sums (the all-reduce is then
-      the identity); one process without a mask takes plain means.
+      the identity); one process without a mask takes plain means;
+    * a rematerialized tower's recompute (:func:`recomputing`) normalizes
+      alike and leaves the running statistics alone.
     """
     xf = x.float()
     axes = (0, 2, 3)
@@ -174,10 +315,11 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mean_offset: torch.Ten
         mean, sq = total[:c] / count, total[c:2 * c] / count
         correction = count / (count - 1.0).clamp_min(1.0)
     var = (sq - mean.square()).clamp_min(0.0)
-    with torch.no_grad():
-        recorded = mean if mean_offset is None else mean + mean_offset
-        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * recorded)
-        bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var * correction)
+    if not recomputing():  # a rematerialized forward updated them already
+        with torch.no_grad():
+            recorded = mean if mean_offset is None else mean + mean_offset
+            bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * recorded)
+            bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var * correction)
     inv = torch.rsqrt(var + bn.eps) * bn.weight
     return (xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
 

@@ -14,6 +14,13 @@ core/models/model.py:205-262):
   ``fast_consensus``, the mean of the features before the heads; with the
   kernels on, both in one ``consensus_heads`` launch at eval).
 
+``tpu.quantize`` (BN-Inception at eval): :func:`calibrate_quantization`
+records each int8 site's amax over a few batches, then a model with
+``quantize="int8"`` runs its towers' convolutions after the stem on the
+int8 kernels (models/bn_inception.py). ``tpu.remat`` recomputes each
+tower's training forward in the backward instead of keeping its
+activations (layers.rematerialized).
+
 In training (``.train()``) the towers run live BatchNorm, the attention
 block its plain compositions with dropout / gumbel noise, Fusion its
 dropout, and the audio feature its batch-wide dropout; every draw comes
@@ -29,8 +36,9 @@ towers activations are NCHW.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,7 +52,7 @@ from ..utils.device import tf32_scope
 from .attention import MHAttention, PositionalEncoding, PrototypeAttention, UniModalAttention
 from .bn_inception import FEATURE_SIZE, BNInception
 from .heads import Classifier, Fusion
-from .layers import CastCache, compute_dtype
+from .layers import QUANT_MODES, CastCache, compute_dtype, rematerialized
 from .resnet import RESNET_CONFIGS, ResNet
 from .vgg import VGG, VGG_CONFIGS, vgg_base_type
 
@@ -109,8 +117,15 @@ class TBNSpec:
     fast_consensus: bool = False
     # Eval stem + pool1 of the 7x7 towers as one kernel (tpu.fused_stem).
     fused_stem: bool = False
-    # tpu.quantize: "" only; the int8 towers are not ported (raises).
+    # tpu.quantize: "" | "calibrate" | "int8" (BN-Inception at eval; see
+    # calibrate_quantization). Drivers refuse it (models/builder.py).
     quantize: str = ""
+    # tpu.merge_inception: the JAX package's merged 1x1 lowering. The port's
+    # float eval computes the same math unmerged either way; the int8 path
+    # merges, and quantize requires the key on, as the JAX package does.
+    merge_inception: bool = True
+    # tpu.remat: rematerialize each tower in the backward pass.
+    remat: bool = False
     # RGB mean is BGR-ordered, matching the reference's BGR decode.
     rgb_mean: Tuple[float, ...] = (0.408, 0.459, 0.502)
     rgb_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
@@ -151,6 +166,8 @@ class TBNSpec:
             fast_consensus=bool(cfg.get_path("tpu.fast_consensus", False)),
             fused_stem=bool(cfg.get_path("tpu.fused_stem", False)),
             quantize=str(cfg.get_path("tpu.quantize", "") or ""),
+            merge_inception=bool(cfg.get_path("tpu.merge_inception", True)),
+            remat=bool(cfg.get_path("tpu.remat", False)),
         )
 
     @property
@@ -192,13 +209,17 @@ class TBNSpec:
         if self.pool_impl not in POOL_IMPLS:
             # a misspelt tpu.pool_impl must not fall through to the plain pool
             raise ValueError(f"Unknown pool_impl {self.pool_impl!r}; expected one of {POOL_IMPLS}")
+        # the JAX package's checks and messages (models/tbn.py:242-251)
+        if self.quantize not in QUANT_MODES:
+            raise ValueError(f"Unknown quantize mode {self.quantize!r}")
         if self.quantize:
-            # the JAX package runs int8 towers here; returning bf16 logits
-            # under that label would be a silent substitution
-            raise ValueError(
-                f"tpu.quantize={self.quantize!r} is not ported yet (the int8 towers); "
-                "the port runs with tpu.quantize unset only"
-            )
+            if self.arch != "bninception":
+                raise ValueError("tpu.quantize supports arch=bninception only")
+            if not self.merge_inception:
+                raise ValueError(
+                    "tpu.quantize requires the merged inception lowering "
+                    "(tpu.merge_inception=true)"
+                )
         compute_dtype(self.compute_dtype)
 
 
@@ -223,6 +244,7 @@ class TBNModel(nn.Module):
                     pool_impl=spec.pool_impl,
                     pool_fast_vjp=spec.pool_fast_vjp,
                     fused_stem=spec.fused_stem,
+                    quantize=spec.quantize,
                 )
             self.add_module(f"Base_{m}", tower)
         if spec.learned_attention:
@@ -306,14 +328,15 @@ class TBNModel(nn.Module):
                 scale = offset = None
                 if uint8:
                     scale, offset = getattr(self, f"_{m}_scale"), getattr(self, f"_{m}_offset")
-                feature = tower(x, dtype, scale, offset, row_mask)
+                args = (x, dtype, scale, offset, row_mask)
             else:
                 if uint8:
                     x = self._normalize(m, x, dtype)
-                if spec.arch == "vgg":
-                    feature = tower(x, dtype, row_mask, generator)
-                else:
-                    feature = tower(x, dtype, row_mask)
+                args = (x, dtype, row_mask) + ((generator,) if spec.arch == "vgg" else ())
+            if spec.remat and self.training and torch.is_grad_enabled():
+                feature = rematerialized(tower, *args, generator=generator)
+            else:
+                feature = tower(*args)
             if m == "Audio":
                 feature, att_wts = self._attend(batch, features, feature, b, use_kernels,
                                                 generator)
@@ -382,3 +405,33 @@ class TBNModel(nn.Module):
             seq = self.pe(feature, use_kernels) if spec.use_pe else feature
             return self.attention_layer(query, seq, use_kernels, generator)
         return self.attention_layer(query, feature, generator)
+
+
+def calibrate_quantization(model: TBNModel, batches: Iterable[Mapping[str, torch.Tensor]]
+                           ) -> TBNModel:
+    """Post-training int8 calibration (``tpu.quantize=int8``), the port of
+    the JAX package's ``calibrate_quantization`` (models/tbn.py:573-613):
+    runs the plain float eval forward over ``batches`` (input dicts as
+    :meth:`TBNModel.forward` takes them) with every BN-Inception tower
+    recording the running max of |x| at each int8 site, so a model with
+    ``quantize="int8"`` then uses the recorded scales. The amaxes are
+    non-persistent buffers of the towers (``BNInception.quant_stats``): the
+    state dict, checkpoints and bundles stay as they were. Existing amaxes
+    are max-merged, not overwritten. Returns ``model``, left in eval mode."""
+    batches = list(batches)
+    if not batches:
+        raise ValueError("calibration needs at least one batch")
+    dataclasses.replace(model.spec, quantize="calibrate").validate()
+    towers = [getattr(model, f"Base_{m}") for m in model.spec.modality]
+    modes = [tower.quantize for tower in towers]
+    model.eval()
+    try:
+        for tower in towers:
+            tower.quantize = "calibrate"
+        with torch.no_grad():
+            for batch in batches:
+                model(batch)
+    finally:
+        for tower, mode in zip(towers, modes):
+            tower.quantize = mode
+    return model

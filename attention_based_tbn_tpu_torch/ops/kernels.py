@@ -23,6 +23,12 @@
   ``benchmarks/fused_block_probe.py:conv3x3_pallas``); at bf16 on the tensor
   cores from :func:`pack_conv3x3_weight`'s operand, by one of two routes
   (:func:`conv3x3_route`).
+* ``quantize`` and ``qconv`` — the int8 compute path of BN-Inception's
+  towers (``tpu.quantize=int8``): an activation quantized to int8 NHWC
+  with its calibrated scale, then the s8 x s8 -> s32 convolution on the
+  int8 tensor cores with the dequantize, ReLU and rounding in its epilogue
+  (csrc/qconv.cu; replaces XLA's s8 convolution of the JAX package's
+  ``models/layers.py:conv2d_apply_q``, not a ``pallas_call``).
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain version
 (``*_plain``); a CUDA tensor goes to the kernel's ``torch.library`` op
@@ -104,9 +110,16 @@ _SIGNATURES = {
         "conv3x3_wgmma_rs_probe": (_I, [_I, _P, _P, _P, _P]),
         "conv3x3_error_string": (ctypes.c_char_p, [_I]),
     },
+    "qconv": {
+        "quantize_forward": (_I, [_I, _I, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+                                  ctypes.c_longlong, _P]),
+        "qconv_forward": (_I, [_I, _I] + [_P] * 5 + [_I] * 12 + [_P]),
+        "qconv_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 _STEM_INPUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _MAX_GRID_Y = 65535  # the kernels put the batch on the grid's y axis
+_MAX_GRID_Z = 65535  # quantize puts it on the z axis
 _GROUP_CHANNELS = (4, 8, 16, 32, 64)  # channels per group the kernel handles
 
 
@@ -1188,8 +1201,220 @@ def wgmma_rs_probe(a, b):
     return c
 
 
+# ---------------------------------------------------- int8 convolution
+
+QCONV_C_IN_MULTIPLE = 32  # one tap's 32 channels a K step (qconv.cu)
+QCONV_KERNELS = (1, 3)
+QCONV_STRIDES = (1, 2)
+QCONV_PADDINGS = (0, 1)
+_INT32_LIMIT = 2**31
+
+
+def quantize_plain(x, x_scale):
+    """(B, C, H, W) fp32 or bf16 -> (B, H, W, C) int8 NHWC: clamp(round(x /
+    x_scale), -127, 127) in fp32, round half to even, as the JAX package's
+    ``conv2d_apply_q`` quantizes its input. ``x_scale``: a one-element
+    float32 tensor on x's device. (A tensor divisor divides exactly on a
+    card too, where torch divides by a Python scalar through its
+    reciprocal.)"""
+    q = torch.round(x.float() / x_scale).clamp_(-127, 127).to(torch.int8)
+    return q.permute(0, 2, 3, 1).contiguous()
+
+
+def quantize_layout(x) -> str:
+    """The kernel's name for (B, C, H, W) x's memory ("" when it takes
+    neither; any batch stride, as a channel slice of a wider activation
+    has): "planes", each (n, c) plane contiguous (NCHW memory), or
+    "channels", channels contiguous at any pixel stride (channels-last
+    memory, cuDNN's output on the card)."""
+    _, c, h, w = x.shape
+    sn, sc, sh, sw = x.stride()
+    if (w == 1 or sw == 1) and (h == 1 or sh == w) and (c == 1 or sc == h * w):
+        return "planes"
+    if sc == 1 and (h == 1 or sh == w * sw) and (h * w == 1 or sw >= c):
+        return "channels"
+    return ""
+
+
+def quantize_shape_error(x, x_scale) -> str:
+    """Why :func:`quantize`'s kernel cannot take these arguments ("" when it
+    can), checked without a card: 4-D fp32 or bf16 x in a layout of
+    :func:`quantize_layout`, C a multiple of 32, at most 65535 rows, a
+    one-element float32 scale."""
+    if x.dim() != 4:
+        return f"x must be (B, C, H, W), got {tuple(x.shape)}"
+    if x.dtype not in _DTYPE_CODES:
+        return f"dtype {x.dtype} not in {list(_DTYPE_CODES)}"
+    b, c, h, w = x.shape
+    if min(b, c, h, w) < 1 or c % QCONV_C_IN_MULTIPLE:
+        return f"C {c} must be a positive multiple of {QCONV_C_IN_MULTIPLE}; x {tuple(x.shape)}"
+    if b > _MAX_GRID_Z:
+        return f"batch {b} > {_MAX_GRID_Z}"
+    if not quantize_layout(x):
+        return f"x must have contiguous planes or contiguous channels, strides {x.stride()}"
+    if x.numel() >= _INT32_LIMIT or h * w * c >= _INT32_LIMIT:
+        return f"x {tuple(x.shape)} has 2^31 elements or more"
+    if tuple(x_scale.shape) != (1,) or x_scale.dtype != torch.float32:
+        return f"x_scale must be one float32, got {tuple(x_scale.shape)} {x_scale.dtype}"
+    return ""
+
+
+def quantize(x, x_scale):
+    """:func:`quantize_plain` on the CPU; the CUDA kernel on the card (op
+    ``tbn::quantize``), which reads NCHW x as it lies and writes a
+    contiguous (B, H, W, C) int8 tensor."""
+    if x.device.type == "cpu":
+        return quantize_plain(x, x_scale)
+    _require_cuda(x)
+    return _quantize_op(x, x_scale)
+
+
+def _quantize_args_error(x, x_scale) -> str:
+    problem = quantize_shape_error(x, x_scale)
+    if not problem and (x_scale.device != x.device or not x_scale.is_contiguous()):
+        return f"x_scale must be contiguous on {x.device}"
+    return problem
+
+
+def _quantize_output(x):
+    b, c, h, w = x.shape
+    return torch.empty((b, h, w, c), dtype=torch.int8, device=x.device)
+
+
+@torch.library.custom_op("tbn::quantize", mutates_args=(), device_types="cuda")
+def _quantize_op(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    _raise_if("quantize", _quantize_args_error(x, x_scale))
+    b, c, h, w = x.shape
+    out = _quantize_output(x)
+    lib = _library("qconv")
+    channels_last = quantize_layout(x) == "channels"
+    if channels_last and x.data_ptr() % (4 * x.element_size()):
+        raise ValueError("quantize: channels-last x must start on 4 elements")
+    err = lib.quantize_forward(_DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x),
+                               _ptr(x_scale), _ptr(out), b, c, h * w, int(channels_last),
+                               x.stride(3), x.stride(0), _stream(x))
+    _raise_on_error("quantize", lib.qconv_error_string, err)
+    quantize.launches += 1
+    return out
+
+
+@_quantize_op.register_fake
+def _(x, x_scale):
+    _raise_if("quantize", _quantize_args_error(x, x_scale))
+    return _quantize_output(x)
+
+
+quantize.launches = 0
+
+
+def qconv_out_size(size: int, kernel: int, stride: int, padding: int) -> int:
+    return (size + 2 * padding - kernel) // stride + 1
+
+
+def qconv_plain(xq, wq, scale, bias, stride: int, padding: int, relu_from: int, dtype):
+    """int8 NHWC ``xq`` (B, H, W, C) conv int8 ``wq`` (C_out, KH, KW, C) ->
+    (B, C_out, H', W') NCHW in ``dtype``: the int32 sums exactly (a float64
+    convolution of the int8 values: every partial sum stays under 2^53),
+    then ``acc * scale`` and ``+ bias`` as two fp32 roundings, the JAX
+    package's dequantize (layers.py:92-96), ReLU on the output channels from
+    ``relu_from`` on, one rounding to ``dtype``. ``scale`` = s_k * x_scale
+    and ``bias`` are (C_out,) fp32."""
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), wq.permute(0, 3, 1, 2).double(), None,
+                   stride, padding).to(torch.int32)
+    y = acc.float() * scale.view(1, -1, 1, 1)
+    y = y + bias.view(1, -1, 1, 1)
+    y[:, relu_from:].clamp_(min=0.0)
+    return y.to(dtype)
+
+
+def qconv_shape_error(xq, wq, scale, bias, stride: int, padding: int, relu_from: int,
+                      dtype) -> str:
+    """Why :func:`qconv`'s kernel cannot take these arguments ("" when it
+    can), checked without a card: contiguous int8 NHWC xq and (C_out, K, K,
+    C_in) wq with K in QCONV_KERNELS, C_in a multiple of 32, stride 1 or 2,
+    padding 0 or 1, (C_out,) float32 scale and bias, 0 <= relu_from <=
+    C_out, an fp32 or bf16 output of positive size under 2^31 elements."""
+    if xq.dim() != 4 or xq.dtype != torch.int8 or not xq.is_contiguous():
+        return f"xq must be contiguous int8 (B, H, W, C), got {tuple(xq.shape)} {xq.dtype}"
+    b, h, w, c = xq.shape
+    if min(b, h, w) < 1 or c < 1 or c % QCONV_C_IN_MULTIPLE:
+        return f"C_in {c} must be a positive multiple of {QCONV_C_IN_MULTIPLE}; xq {tuple(xq.shape)}"
+    if (wq.dim() != 4 or wq.dtype != torch.int8 or not wq.is_contiguous()
+            or wq.shape[1] != wq.shape[2] or wq.shape[1] not in QCONV_KERNELS
+            or wq.shape[3] != c or wq.shape[0] < 1):
+        return (f"wq must be contiguous int8 (C_out, K, K, {c}) with K in {QCONV_KERNELS}, "
+                f"got {tuple(wq.shape)} {wq.dtype}")
+    if stride not in QCONV_STRIDES or padding not in QCONV_PADDINGS:
+        return f"stride {stride} / padding {padding} not in {QCONV_STRIDES} / {QCONV_PADDINGS}"
+    c_out, k = wq.shape[0], wq.shape[1]
+    for name, t in (("scale", scale), ("bias", bias)):
+        if tuple(t.shape) != (c_out,) or t.dtype != torch.float32 or not t.is_contiguous():
+            return f"{name} must be contiguous float32 ({c_out},), got {tuple(t.shape)} {t.dtype}"
+    if not 0 <= relu_from <= c_out:
+        return f"relu_from {relu_from} outside [0, {c_out}]"
+    if dtype not in _DTYPE_CODES:
+        return f"dtype {dtype} not in {list(_DTYPE_CODES)}"
+    ho, wo = (qconv_out_size(s, k, stride, padding) for s in (h, w))
+    if ho < 1 or wo < 1:
+        return f"no output from {h} x {w} with kernel {k}, stride {stride}, padding {padding}"
+    if xq.numel() >= _INT32_LIMIT or b * c_out * ho * wo >= _INT32_LIMIT:
+        return f"xq {tuple(xq.shape)} or its output has 2^31 elements or more"
+    return ""
+
+
+def qconv(xq, wq, scale, bias, stride: int, padding: int, relu_from: int, dtype):
+    """:func:`qconv_plain` on the CPU; the CUDA kernel on the card (op
+    ``tbn::qconv``), its dequantize, ReLU and rounding in the epilogue."""
+    if xq.device.type == "cpu":
+        return qconv_plain(xq, wq, scale, bias, stride, padding, relu_from, dtype)
+    _require_cuda(xq)
+    return _qconv_op(xq, wq, scale, bias, stride, padding, relu_from, dtype)
+
+
+def _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from, dtype) -> str:
+    problem = qconv_shape_error(xq, wq, scale, bias, stride, padding, relu_from, dtype)
+    if not problem and any(t.device != xq.device for t in (wq, scale, bias)):
+        return f"wq, scale and bias must be on {xq.device}"
+    return problem
+
+
+def _qconv_output(xq, wq, stride, padding, dtype):
+    b, h, w, _ = xq.shape
+    k = wq.shape[1]
+    return torch.empty((b, wq.shape[0], qconv_out_size(h, k, stride, padding),
+                        qconv_out_size(w, k, stride, padding)), dtype=dtype, device=xq.device)
+
+
+@torch.library.custom_op("tbn::qconv", mutates_args=(), device_types="cuda")
+def _qconv_op(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              stride: int, padding: int, relu_from: int, dtype: torch.dtype) -> torch.Tensor:
+    _raise_if("qconv", _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from, dtype))
+    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("qconv: xq and wq must start on 16 bytes")
+    b, h, w, c = xq.shape
+    out = _qconv_output(xq, wq, stride, padding, dtype)
+    lib = _library("qconv")
+    err = lib.qconv_forward(_DTYPE_CODES[dtype], xq.device.index or 0, _ptr(xq), _ptr(wq),
+                            _ptr(scale), _ptr(bias), _ptr(out), b, h, w, c, wq.shape[0],
+                            wq.shape[1], wq.shape[2], stride, padding, out.shape[2], out.shape[3],
+                            relu_from, _stream(xq))
+    _raise_on_error("qconv", lib.qconv_error_string, err)
+    qconv.launches += 1
+    return out
+
+
+@_qconv_op.register_fake
+def _(xq, wq, scale, bias, stride, padding, relu_from, dtype):
+    _raise_if("qconv", _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from, dtype))
+    return _qconv_output(xq, wq, stride, padding, dtype)
+
+
+qconv.launches = 0
+
+
 WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d,
-            "fused_stem": fused_stem, "consensus_heads": consensus_heads, "conv3x3": conv3x3}
+            "fused_stem": fused_stem, "consensus_heads": consensus_heads, "conv3x3": conv3x3,
+            "quantize": quantize, "qconv": qconv}
 
 
 def reset_launch_counts() -> None:

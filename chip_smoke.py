@@ -56,7 +56,13 @@ after:
   of 12 clips and a ragged one of 7), then ``validate`` on 2 batches of 2
   clips x 25 segments; step time, memory and a device profile of one step;
   and one float32 step with the pool kernel against the same step with the
-  plain pool;
+  plain pool; the same step with ``tpu.remat`` (``remat_step``): its state
+  bit-equal to the plain step's, its peak memory below it;
+* the int8 towers (``int8_path``, ``tpu.quantize=int8``): the serving
+  flagship calibrated, one b=10 int8 forward through ``quantize`` and
+  ``qconv`` (the launch counts from the code, logits within rel-RMSE 0.2
+  of bf16), both kernels bit-equal to their plain versions at every site
+  shape of a b=1 and of that b=10 forward;
 * the training entry point: the port's ``main`` in train mode on a
   tri-modal fixture (RGB JPEG frames, Flow JPEG pairs, WAV audio, by the
   port's writers; 40 training clips: 3 batches of 12 and a ragged one of 4;
@@ -149,6 +155,7 @@ from attention_based_tbn_tpu_torch.data import synthetic
 from attention_based_tbn_tpu_torch.data.records import load_annotations
 from attention_based_tbn_tpu_torch.models.attention import PE_CHANNELS, positional_encoding_table
 from attention_based_tbn_tpu_torch.models.bn_inception import BN_INCEPTION_BLOCKS, BNInception
+from attention_based_tbn_tpu_torch.models import layers
 from attention_based_tbn_tpu_torch.models.builder import build_model
 from attention_based_tbn_tpu_torch.ops import build, kernels
 from attention_based_tbn_tpu_torch.parallel.optim import lr_at_epoch
@@ -168,7 +175,7 @@ from attention_based_tbn_tpu_torch.utils.timing import event_ms, graph_ms
 # Published peaks of one H100 SXM (dense): HBM bytes/s and operations/s by
 # the activations' type (bf16 tensor cores; fp32 outside the tensor cores).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 # Kernel vs plain version: |err| <= atol + rtol * max|plain|. fp32 differs
 # only in summation order over 1024-long dot products; bf16 also in the
 # final rounding of outputs up to ~8 (one bf16 ulp there is 0.03).
@@ -192,6 +199,9 @@ REPLACES = {
     "fused_stem": "attention_based_tbn_tpu/ops/fused_stem.py:264",
     "consensus_heads": "attention_based_tbn_tpu/ops/pallas_kernels.py:299",
     "conv3x3": "benchmarks/fused_block_probe.py:76",
+    # XLA's s8 convolution and its quantize, not a pallas_call
+    "quantize": "attention_based_tbn_tpu/models/layers.py:54",
+    "qconv": "attention_based_tbn_tpu/models/layers.py:54",
 }
 SOURCES = {
     "pe_block": "attention_based_tbn_tpu_torch/ops/csrc/pe_block.cu",
@@ -200,6 +210,8 @@ SOURCES = {
     "fused_stem": "attention_based_tbn_tpu_torch/ops/csrc/fused_stem.cu",
     "consensus_heads": "attention_based_tbn_tpu_torch/ops/csrc/consensus_heads.cu",
     "conv3x3": "attention_based_tbn_tpu_torch/ops/csrc/conv3x3.cu",
+    "quantize": "attention_based_tbn_tpu_torch/ops/csrc/qconv.cu",
+    "qconv": "attention_based_tbn_tpu_torch/ops/csrc/qconv.cu",
 }
 # (H, W, C, input type) of each tower's stem input on the main paths: uint8
 # 224x224 RGB and 10-channel Flow, the float32 256x420 spectrogram of 2.1 s
@@ -286,6 +298,16 @@ TRAINER_KERNELS = ("max_pool", "pe_block", "mha", "fused_stem", "consensus_heads
 # kernel vs the plain pool: the pools are exact, so any gap is cuDNN's
 # summation order; loss and parameters within this relative tolerance.
 TRAIN_AGREEMENT_RTOL = 1e-5
+# The int8 towers (int8_path): calibration on INT8_CALIBRATION seeded b=10
+# batches; the int8 logits within INT8_REL_RMSE of the bf16 ones (the JAX
+# package's bound, tests/test_quantize.py test_flagship_quantized_forward).
+# Launches a tower, from models/bn_inception.py: the two conv2 cells, four
+# sites a block (the merged 1x1, 3x3, double_3x3_1, double_3x3_2), and the
+# proj of each max-pool branch (inception_5b); one quantize each.
+INT8_CALIBRATION = 2
+INT8_REL_RMSE = 0.2
+INT8_LAUNCHES_PER_TOWER = 2 + sum(4 + (b.proj > 0 and b.pool == "max")
+                                  for _, b in BN_INCEPTION_BLOCKS)
 
 _LOG = None  # file that every emitted line is also appended to (--out)
 
@@ -944,14 +966,15 @@ def check_wgmma(failures: list) -> None:
 
 def sass_counts() -> dict:
     """Instructions per built library in its SASS (cuobjdump --dump-sass):
-    HGMMA is wgmma, HMMA mma.sync, FFMA the fp32 FMA units."""
+    HGMMA is wgmma, HMMA mma.sync on bf16 / fp16, IMMA mma.sync on int8,
+    FFMA the fp32 FMA units."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     counts = {}
     for name in build.KERNELS:
         sass = subprocess.run([tool, "--dump-sass", build.library_path(name)],
                               capture_output=True, text=True, check=True).stdout.splitlines()
         counts[name] = {op: sum(f" {op}" in line for line in sass)
-                        for op in ("HGMMA", "HMMA", "FFMA")}
+                        for op in ("HGMMA", "HMMA", "IMMA", "FFMA")}
     return counts
 
 
@@ -1065,6 +1088,8 @@ CATEGORIES = (
     ("mha", ("linear_kernel", "attend_kernel", "::gemm_kernel<")),
     ("max_pool_kernel", ("ceil_pool_forward", "ceil_pool_backward")),
     ("fused_stem", ("fused_stem_kernel", "stem_mma_kernel")),
+    ("qconv", ("qconv_kernel",)),
+    ("quantize", ("quantize_kernel", "quantize_nhwc_kernel")),
     ("consensus_heads", ("consensus_heads_kernel",)),
     # the ResNet / VGG towers' BatchNorm at eval: y * scale + offset after
     # the conv (models/layers.conv_bn)
@@ -1372,7 +1397,279 @@ def train_timing(state, cfg, card: str, failures: list) -> dict:
                         f"pool_impl=pallas step, expected {stride1} (the stride-1 pools)")
     if len(layouts) != 12:
         failures.append(f"train_profile: {len(layouts)} pool kernel calls in a step, not 12")
+    remat_step(state, step, batches, peak_gib, p50, card, failures)
     return {**result, "pool_calls": [(tuple(shape), layout) for shape, layout in layouts]}
+
+
+def remat_step(state, step, batches, peak_gib: float, p50: float, card: str,
+               failures: list) -> None:
+    """``tpu.remat``: from one snapshot of the train state, the same 12 x 3
+    step without and with remat (peak memory of each, the states after
+    each bit-equal: the bf16 step is bit-reproducible, and remat replays
+    the same forward); then remat steps timed as train_timing's (two
+    warm-ups), beside its plain p50 and peak. The snapshot is restored
+    afterwards."""
+    import copy
+    import dataclasses
+
+    model = state.model
+    spec = model.spec
+    snapshot = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                copy.deepcopy(state.optimizer.state_dict()), state.generator.get_state(),
+                state.step)
+
+    def restore():
+        model.load_state_dict(snapshot[0])
+        state.optimizer.load_state_dict(copy.deepcopy(snapshot[1]))
+        state.generator.set_state(snapshot[2])
+        state.step = snapshot[3]
+
+    batch, targets, meta = batches[0]
+    after, peaks, losses = {}, {}, {}
+    try:
+        for remat in (False, True):
+            restore()
+            model.spec = dataclasses.replace(spec, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, loss, _ = step(state, batch, targets, 0, meta["batch_size"])
+            losses[remat] = float(loss["total"])
+            torch.cuda.synchronize()
+            peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+            after[remat] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        model.spec = dataclasses.replace(spec, remat=True)
+        times = step_times(step, state, batches[:6])
+    finally:
+        model.spec = spec
+        restore()
+    differing = [k for k, v in after[False].items() if not torch.equal(after[True][k], v)]
+    remat_p50 = times[len(times) // 2]
+    emit({"phase": "train_remat", "gpu": card, "batch": 12, "loss_plain": losses[False],
+          "loss_remat": losses[True], "tensors_bit_equal": len(after[False]) - len(differing),
+          "tensors": len(after[False]), "differing": differing[:10],
+          "one_step_peak_gib": {"plain": peaks[False], "remat": peaks[True]},
+          "step_ms_p50": remat_p50, "step_ms_min": times[0], "step_ms_max": times[-1],
+          "plain_step_ms_p50": p50, "plain_max_memory_allocated_gib": peak_gib,
+          "compute_dtype": spec.compute_dtype})
+    if differing:
+        failures.append(f"train_remat: {len(differing)} of {len(after[False])} tensors of the "
+                        f"remat step's state differ from the plain step's: {differing[:5]}")
+    if not peaks[True] < peaks[False]:
+        failures.append(f"train_remat: peak memory {peaks[True]:.2f} GiB with remat, "
+                        f"{peaks[False]:.2f} GiB without")
+
+
+def int8_cost(xq, wq, out) -> tuple:
+    """qconv: its int8 input and weight, the fp32 scale and bias and the
+    output once; 2 M N K int8 operations at the int8 peak."""
+    positions = out.shape[0] * out.shape[2] * out.shape[3]
+    moved = (xq.numel() + wq.numel() + 8 * wq.shape[0]
+             + out.numel() * out.element_size())
+    return bound(moved, 2 * positions * wq.numel(), torch.int8)
+
+
+def quantize_cost(x) -> tuple:
+    """quantize: x once, the int8 output once; four fp32 operations an
+    element (divide, round, two clamps)."""
+    return bound(x.numel() * (x.element_size() + 1), 4 * x.numel(), torch.float32)
+
+
+def int8_site_checks(sites, batch: int) -> list:
+    """Each distinct site shape's quantize and qconv (fp32 and bf16 output)
+    of a forward's recorded ``sites`` (``layers.recording_sites``) against
+    the plain versions on the recorded inputs: a record each."""
+    records, seen = [], set()
+    for x, x_scale, args in sites:
+        key = ("quantize", tuple(x.shape), kernels.quantize_layout(x), str(x.dtype))
+        if key not in seen:
+            seen.add(key)
+            got, want = kernels.quantize(x, x_scale), kernels.quantize_plain(x, x_scale)
+            records.append({"kernel": "quantize", "batch": batch, "shape": list(x.shape),
+                            "layout": key[2], "dtype": key[3].replace("torch.", ""),
+                            "max_abs_err": (got.int() - want.int()).abs().max().item()})
+        xq, wq, scale, bias, stride, padding, relu_from, _ = args
+        key = ("qconv", tuple(xq.shape), tuple(wq.shape), stride, padding, relu_from)
+        if key in seen:
+            continue
+        seen.add(key)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (xq, wq, scale, bias, stride, padding, relu_from, dtype)
+            got, want = kernels.qconv(*args), kernels.qconv_plain(*args)
+            records.append({"kernel": "qconv", "batch": batch, "x": list(xq.shape),
+                            "w": list(wq.shape), "stride": stride, "padding": padding,
+                            "relu_from": relu_from, "dtype": str(dtype).replace("torch.", ""),
+                            "max_abs_err": (got.float() - want.float()).abs().max().item()})
+            del got, want
+    torch.cuda.synchronize()
+    return records
+
+
+def int8_site_times(sites) -> dict:
+    """Times of the largest quantize site (bytes) and the largest 1x1 and
+    3x3 qconv sites (operations) of a forward's recorded ``sites``:
+    event-timed and by CUDA graph, the plain versions, the bound; beside
+    qconv the bf16 cuDNN conv of the same site (its float input as the
+    tower handed it, a seeded bf16 weight of its shape), and at the 1x1
+    site torch._int_mm on its int8 GEMM (the int32 products alone, no
+    dequantize)."""
+    x, x_scale, _ = max(sites, key=lambda site: site[0].numel())
+    bound_ms, bound_by = quantize_cost(x)
+    out = {"quantize": {
+        "shape": list(x.shape), "layout": kernels.quantize_layout(x),
+        "ms": event_ms(lambda: kernels.quantize(x, x_scale), 20),
+        "graph_ms": graph_ms(lambda: kernels.quantize(x, x_scale)),
+        "plain_ms": event_ms(lambda: kernels.quantize_plain(x, x_scale), 3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}}
+
+    def operations(site):
+        xq, wq, _, _, stride, padding = site[2][:6]
+        ho, wo = (kernels.qconv_out_size(s, wq.shape[1], stride, padding) for s in xq.shape[1:3])
+        return xq.shape[0] * ho * wo * wq.numel()
+
+    for k in (1, 3):
+        x_float, _, args = max((site for site in sites if site[2][1].shape[1] == k),
+                               key=operations)
+        xq, wq, scale, bias, stride, padding, relu_from, dtype = args
+        bound_ms, bound_by = int8_cost(xq, wq, kernels.qconv(*args))
+        gen = torch.Generator(device=xq.device).manual_seed(13)
+        weight = (torch.randn(wq.permute(0, 3, 1, 2).shape, device=xq.device, generator=gen)
+                  * 0.05).to(dtype)
+        conv_bias = torch.zeros(wq.shape[0], device=xq.device, dtype=dtype)
+
+        def cudnn():
+            return torch.nn.functional.conv2d(x_float, weight, conv_bias, stride, padding)
+
+        record = {
+            "x": list(xq.shape), "w": list(wq.shape), "stride": stride, "padding": padding,
+            "ms": event_ms(lambda: kernels.qconv(*args), 20),
+            "graph_ms": graph_ms(lambda: kernels.qconv(*args)),
+            "plain_ms": event_ms(lambda: kernels.qconv_plain(*args), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "cudnn_bf16_conv_ms": event_ms(cudnn, 20), "cudnn_bf16_conv_graph_ms": graph_ms(cudnn),
+            "library_ms": None}
+        if k == 1:
+            a = xq.reshape(-1, xq.shape[-1])
+            b = wq.reshape(wq.shape[0], -1).t()  # (K, N), column-major
+            record["int_mm_ms"] = record["library_ms"] = event_ms(
+                lambda: torch._int_mm(a, b), 20)
+            record["int_mm_graph_ms"] = graph_ms(lambda: torch._int_mm(a, b))
+        out[f"qconv_{k}x{k}"] = record
+    return out
+
+
+def int8_path(card: str, failures: list) -> dict:
+    """The int8 towers (``tpu.quantize=int8``) at full width: the serving
+    flagship (tri-modal BN-Inception, 224^2, 25 segments, 2.1 s audio, PE +
+    4-head MHA, bf16, kernels on, seeded weights) built with quantize
+    "int8" (the drivers refuse the key, so as the JAX package's API:
+    ``models.tbn.calibrate_quantization``); (a) calibrated on
+    INT8_CALIBRATION seeded b=10 batches; (b) 126 amaxes, all > 0; (c) one
+    b=10 int8 forward with the launch counts set to 0 just before and read
+    just after: quantize and qconv INT8_LAUNCHES_PER_TOWER a tower,
+    pe_block and mha launched; (d) its logits against the same weights'
+    bf16 forward, rel-RMSE < INT8_REL_RMSE, top-1 agreement beside it; (e)
+    every distinct site shape of a b=1 and of the b=10 forward (RGB, Flow
+    and Audio towers), quantize and qconv (fp32 and bf16 outputs) against
+    the plain versions on the recorded inputs: bit-equal; (f) times at the
+    largest sites of the b=10 forward (int8_site_times); (g) device time of the
+    b=10 int8 forward and of the bf16 one, by profiler. Returns (the
+    launches of (c), the kernels line's records)."""
+    import dataclasses
+
+    from attention_based_tbn_tpu_torch.models.tbn import (TBNModel, TBNSpec,
+                                                          calibrate_quantization)
+    start = time.perf_counter()
+    cfg = load_config(overrides=["tpu.quantize=int8"])
+    spec = TBNSpec.from_config(cfg, get_modality(cfg))
+    model = TBNModel(spec)
+    model.reset_parameters(torch.Generator().manual_seed(int(cfg.data.manual_seed)))
+    model = model.cuda().eval()
+    plain = TBNModel(dataclasses.replace(spec, quantize=""))
+    plain.load_state_dict(model.state_dict())
+    plain = plain.cuda().eval()
+    n, crop = int(cfg.test.num_segments), int(cfg.data.test_crop_size)
+    batches = [b for b, _, _ in SmokeLoader(cfg, [10] * (INT8_CALIBRATION + 1), n, crop, seed=11)]
+    calibration, request = batches[:INT8_CALIBRATION], batches[-1]
+    began = time.perf_counter()
+    calibrate_quantization(model, calibration)
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - began
+    stats = {m: getattr(model, f"Base_{m}").quant_stats() for m in spec.modality}
+    amaxes = [v.item() for tower in stats.values() for v in tower.values()]
+    if len(amaxes) != 42 * len(spec.modality) or not all(a > 0 for a in amaxes):
+        failures.append(f"int8: {len(amaxes)} amaxes after calibration (expected "
+                        f"{42 * len(spec.modality)}, all > 0), min {min(amaxes, default=0)}")
+
+    with torch.no_grad():
+        model(request)  # the operand caches: made once per weight version
+        kernels.reset_launch_counts()
+        out = model(request)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
+        want = plain(request)
+    expected = INT8_LAUNCHES_PER_TOWER * len(spec.modality)
+    for name in ("quantize", "qconv"):
+        if launches[name] != expected:
+            failures.append(f"int8: {name} launched {launches[name]} times in a b=10 forward, "
+                            f"expected {expected} ({INT8_LAUNCHES_PER_TOWER} a tower)")
+    for name in ("pe_block", "mha"):
+        if launches[name] < 1:
+            failures.append(f"int8: kernel {name} was not launched")
+    agreement = {}
+    for key in ("verb", "noun"):
+        a, b = want[key].float().cpu().numpy(), out[key].float().cpu().numpy()
+        agreement[key] = {"rel_rmse_vs_bf16": rel_rmse(b, a),
+                          "top1_agreement": float((a.argmax(-1) == b.argmax(-1)).mean()),
+                          "finite": bool(np.isfinite(b).all())}
+        if not (agreement[key]["finite"] and agreement[key]["rel_rmse_vs_bf16"] < INT8_REL_RMSE):
+            failures.append(f"int8: {key} logits {agreement[key]} (bound {INT8_REL_RMSE})")
+
+    # (e) every distinct site shape at b=1 (25 images a tower) and at b=10;
+    # (f) the largest sites of the b=10 forward
+    checks = []
+    with torch.no_grad():
+        for b in (1, 10):
+            with layers.recording_sites() as sites:
+                model({k: v[:b] for k, v in request.items()})
+            checks += int8_site_checks(sites, b)
+        times = int8_site_times(sites)
+    del sites
+    torch.cuda.empty_cache()
+    for record in checks:
+        emit({"phase": "int8_site_check", **record})
+    quantize_err, qconv_err = (max(r["max_abs_err"] for r in checks if r["kernel"] == name)
+                               for name in ("quantize", "qconv"))
+    if quantize_err or qconv_err:
+        failures.append(f"int8: kernels differ from their plain versions: quantize "
+                        f"{quantize_err}, qconv {qconv_err}")
+
+    # (g) device time of the b=10 forward, int8 and bf16
+    def forward(m):
+        def run():
+            with torch.no_grad():
+                m(request)
+            torch.cuda.synchronize()
+        return run
+
+    profiles = {"int8": device_profile(forward(model)), "bf16": device_profile(forward(plain))}
+    result = {"phase": "int8_path", "gpu": card, "batch": 10, "segments": n,
+              "calibrate_s": calibrate_s, "amaxes": len(amaxes), "amax_min": min(amaxes),
+              "launches": launches, "expected_launches_each": expected,
+              "logits": agreement, "site_shapes_checked": len(checks),
+              "quantize_max_abs_err": quantize_err, "qconv_max_abs_err": qconv_err,
+              "times": times,
+              "device_ms": {k: p["device_ms"] for k, p in profiles.items()},
+              "device_busy_share": {k: p["device_busy_share"] for k, p in profiles.items()},
+              "device_ms_by_category": {k: p["device_ms_by_category"]
+                                        for k, p in profiles.items()},
+              "seconds": time.perf_counter() - start}
+    emit(result)
+    qconv_1x1 = times["qconv_1x1"]
+    line = {"quantize": {**times["quantize"], "max_abs_err": quantize_err},
+            "qconv": {**qconv_1x1, "max_abs_err": qconv_err}}
+    del model, plain, batches, calibration, request
+    torch.cuda.empty_cache()
+    return launches, line
 
 
 def train_agreement(state_dict: dict, failures: list) -> None:
@@ -2958,6 +3255,8 @@ def main(argv=None) -> int:
     for name in ("pe_block", "mha", "fused_stem", "conv3x3"):  # their bf16 routes run on wgmma
         if sass[name]["HGMMA"] < 1:
             failures.append(f"{name}: no HGMMA instruction in its library's SASS")
+    if sass["qconv"]["IMMA"] < 1:  # the int8 tensor cores
+        failures.append("qconv: no IMMA instruction in its library's SASS")
     # the limits the wrappers check without a card, against the library's own
     limits = {str(dt).replace("torch.", ""): (kernels.PE_BLOCK_LIMITS[dt],
                                                kernels.pe_block_library_limits(dt))
@@ -3084,14 +3383,21 @@ def main(argv=None) -> int:
     for part, counts in arch_path(card, failures).items():
         emit({"phase": "launches", "path": f"arch/{part}", **counts})
 
+    # the int8 towers: calibration, the int8 forward, quantize and qconv
+    int8_launches, int8_line = int8_path(card, failures)
+    emit({"phase": "launches", "path": "int8", **int8_launches})
+    main_case.update(int8_line)
+
     # data parallelism: the flagship's steps, main's train and test modes
     # on R ranks under torchrun, against one process
     multi_rank_launches = multi_rank_path(card, failures)
     emit({"phase": "launches", "path": "multi_rank (rank 0)", **multi_rank_launches})
-    # launches: this slice's main path, the multi-rank path's rank 0, for
-    # the kernels it runs; conv3x3 runs on the probe's path only
+    # launches: the multi-rank path's rank 0, for the kernels it runs;
+    # conv3x3 runs on the probe's path only, quantize and qconv on the int8
+    # path only
     launches = {name: multi_rank_launches[name] for name in MULTI_RANK_KERNELS}
     launches["conv3x3"] = probe_launches["conv3x3"]
+    launches.update({name: int8_launches[name] for name in ("quantize", "qconv")})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": main_case[name]["max_abs_err"],

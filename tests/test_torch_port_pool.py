@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from attention_based_tbn_tpu.models.tbn import TBNSpec as JaxTBNSpec
 from attention_based_tbn_tpu.ops.pallas_pool import _ceil_out, _xla_pool, ceil_max_pool2d_pallas
+from attention_based_tbn_tpu_torch.models.builder import build_model
 from attention_based_tbn_tpu_torch.models.tbn import TBNModel, TBNSpec
 from attention_based_tbn_tpu_torch.ops import kernels
 from attention_based_tbn_tpu_torch.ops.pooling import POOL_IMPLS, max_pool2d
@@ -368,14 +369,18 @@ def test_pool_fast_vjp_is_read_and_reaches_every_max_pool(monkeypatch):
 
 
 def test_int8_quantize_runs_in_jax_and_is_refused_by_the_port():
-    """tpu.quantize=int8 selects int8 towers in the JAX package; the port has
-    none yet and refuses the key instead of returning bf16 logits under it."""
+    """tpu.quantize=int8 selects int8 towers in both packages at the spec
+    level (the port's run on its int8 kernels: tests/test_torch_port_quantize.py);
+    the port's drivers refuse the key, as the JAX package's do."""
     cfg, jcfg = configs(["tpu.quantize=int8"])
     JaxTBNSpec.from_config(jcfg, ("RGB", "Audio")).validate()
     spec = TBNSpec.from_config(cfg, ("RGB", "Audio"))
     assert spec.quantize == "int8"
-    with pytest.raises(ValueError, match="quantize"):
-        TBNModel(spec)
+    spec.validate()
+    model = TBNModel(spec)
+    assert model.Base_RGB.quantize == model.Base_Audio.quantize == "int8"
+    with pytest.raises(ValueError, match="calibrate_quantization"):
+        build_model(cfg, ["RGB", "Audio"], device="cpu")
     dataclasses.replace(spec, quantize="").validate()
 
 

@@ -143,7 +143,7 @@ def test_weights_dir_resolves_as_jax():
 @pytest.mark.parametrize("over,message", [
     ("model.loss_fn=mse", "prior-loss"), ("model.loss_fn=hinge", "Loss type"),
     ("model.arch=alexnet", "Model type"), ("model.arch=resnet", "audio attention requires"),
-    ("tpu.quantize=int8", "not ported yet"),
+    ("tpu.quantize=int8", "calibrate_quantization"),
 ])
 def test_build_model_refuses_what_jax_refuses(over, message):
     cfg, jcfg = configs([over])
