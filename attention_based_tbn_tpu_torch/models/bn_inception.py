@@ -36,15 +36,21 @@ JAX package does): "calibrate" runs the float eval and records the running
 max of |x| at each of the tower's 42 int8 sites (:data:`QUANT_SITES`, the
 JAX package's quant_stats paths) into a non-persistent buffer; "int8" runs
 the JAX package's quantized ``_fused_eval`` (bn_inception.py:349-476) on
-the int8 kernels (layers.qconv_site): conv2_3x3_reduce and conv2_3x3, and
-in each block one merged 1x1 conv over the block input in the JAX column
-order [pool_proj / 9 (bias-free; avg blocks) | 1x1 | 3x3_reduce |
-double_3x3_reduce], the three 3x3 convs, the avg branch as the 9-tap sum
-of its projection (project first, pool after: under int8 the two orders
-quantize different tensors) + bias + ReLU, and inception_5b's max branch
-proj on the pooled input with the block's in_amax. The stem stays float
-and the fused stem off. An int8 forward without calibrated amaxes raises;
-the buffers stay out of the state dict.
+the int8 kernels (layers.quantize_site, layers.qconv_site): conv2_3x3_reduce
+and conv2_3x3, and in each block one merged 1x1 conv over the block input
+in the JAX column order [pool_proj / 9 (bias-free; avg blocks) | 1x1 |
+3x3_reduce | double_3x3_reduce], the three 3x3 convs, the avg branch as the
+9-tap sum of its projection (project first, pool after: under int8 the two
+orders quantize different tensors) + bias + ReLU, and inception_5b's max
+branch proj on the pooled input with the block's in_amax. The int8
+activations are channels-last: each block writes one channels-last output
+buffer, every branch's last site into its channel slice (no concatenation),
+and a tensor that only the next int8 site reads (conv2_3x3's input, each
+block's 3x3 and double_3x3_1 inputs from the merged 1x1, double_3x3_2's) is
+quantized in the epilogue of the qconv that produces it: 12 standalone
+quantizes and 43 convolutions a tower. The stem stays float and the fused
+stem off. An int8 forward without calibrated amaxes raises; the buffers
+stay out of the state dict.
 
 Modules are flat attributes named as in the reference state dict
 (``conv1_7x7_s2`` + ``conv1_7x7_s2_bn``, ``inception_3a_1x1`` + ``..._bn``),
@@ -67,11 +73,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import kernels
 from ..ops.kernels import fused_stem, fused_stem_shape_error
 from ..ops.pooling import avg_pool2d, global_avg_pool, max_pool2d
 from .layers import (BN_EPSILON, QUANT_MODES, CastCache, FoldCache, batch_norm_train,
-                     conv_bn_sources, exact_div, fold, qconv_operands, qconv_site, record_amax,
-                     variance_scaling_)
+                     channels_last, conv_bn_sources, exact_div, fold, nhwc, qconv_operands,
+                     qconv_site, quantize_site, record_amax, variance_scaling_)
 
 
 @dataclass(frozen=True)
@@ -246,17 +253,48 @@ class BNInception(nn.Module):
 
         return self._quantized.derive(key, sources + (amax,), torch.float32, make)
 
-    def _qcbr(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """A conv2 cell at int8: conv + BN folded + ReLU."""
-        conv = getattr(self, name)
-        operands = self._q_operands(name, (name,), f"{name}/amax")
-        return qconv_site(x, operands, conv.stride[0], conv.padding[0])
+    def _cell_operands(self, cell: str, site: str):
+        """The int8 operands of one unmerged cell at ``site``'s scale."""
+        return self._q_operands(cell, (cell,), site)
 
-    def _proj_sum(self, name: str, proj: torch.Tensor) -> torch.Tensor:
-        """The avg branch after the merged conv: the 9-tap zero-padded sum of
-        its / 9 projection in the compute dtype, in the JAX package's tap
-        order (ops/pooling.py:_pool_via_slices), + the proj's float32 fold
-        bias rounded to the dtype, ReLU."""
+    def _qcell(self, name: str, xq: torch.Tensor, dtype: torch.dtype,
+               next_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A conv2 cell at int8 on its int8 NHWC input: conv + BN folded +
+        ReLU, the (B, C, H, W) channels-last output in ``dtype``; or, with
+        ``next_scale``, that output quantized for the next site in the
+        epilogue, int8 NHWC (its float copy never written)."""
+        conv = getattr(self, name)
+        operands = self._cell_operands(name, f"{name}/amax")
+        stride, padding = conv.stride[0], conv.padding[0]
+        b, ho, wo, c = kernels.qconv_output_shape(xq, operands[0], stride, padding)
+        if next_scale is not None:
+            out = xq.new_empty((b, ho, wo, c))
+            qconv_site(xq, operands, stride, padding, dtype, [(out, next_scale)])
+            return out
+        out = channels_last((b, c, ho, wo), dtype, xq.device)
+        qconv_site(xq, operands, stride, padding, dtype, [(nhwc(out), None)])
+        return out
+
+    def _qcbr(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A conv2 cell at int8 on float NCHW ``x``: quantize, conv + BN
+        folded + ReLU, the float output (channels-last)."""
+        xq = quantize_site(x, self._cell_operands(name, f"{name}/amax")[3])
+        return self._qcell(name, xq, x.dtype)
+
+    def _qconv2(self, x: torch.Tensor) -> torch.Tensor:
+        """conv2_3x3_reduce -> conv2_3x3 at int8 on float NCHW ``x``: the
+        reduce's output quantized for conv2_3x3 in its epilogue."""
+        reduce, conv = "conv2_3x3_reduce", "conv2_3x3"
+        xq = quantize_site(x, self._cell_operands(reduce, f"{reduce}/amax")[3])
+        rq = self._qcell(reduce, xq, x.dtype, self._cell_operands(conv, f"{conv}/amax")[3])
+        return self._qcell(conv, rq, x.dtype)
+
+    def _proj_sum(self, name: str, proj: torch.Tensor, out: torch.Tensor) -> None:
+        """The avg branch after the merged conv, into ``out`` (the block
+        output's channel slice): the 9-tap zero-padded sum of its / 9
+        projection in the compute dtype, in the JAX package's tap order
+        (ops/pooling.py:_pool_via_slices), + the proj's float32 fold bias
+        rounded to the dtype, ReLU."""
         cell = f"{name}_pool_proj"
         _, bias = self._folded.get(f"{cell}/bias", getattr(self, cell),
                                    getattr(self, f"{cell}_bn"), torch.float32, proj.dtype)
@@ -267,39 +305,51 @@ class BNInception(nn.Module):
             for dx in range(3):
                 tap = padded[:, :, dy:dy + h, dx:dx + w]
                 total = tap if total is None else total + tap
-        return F.relu(total + bias.view(1, -1, 1, 1))
+        torch.clamp_min(total + bias.view(1, -1, 1, 1), 0.0, out=out)
 
     def _qblock(self, name: str, s: InceptionSpec, x: torch.Tensor) -> torch.Tensor:
-        """One block at int8 (the JAX package's quantized _fused_eval)."""
+        """One block at int8 (the JAX package's quantized _fused_eval) on
+        float NCHW ``x``. The block's output is one channels-last buffer;
+        each branch's last site writes its channel slice (no concatenation),
+        and the merged 1x1's reduce columns and double_3x3_1 are quantized
+        for their one consumer in the epilogue."""
         merge_proj = bool(s.proj) and s.pool == "avg"
         cells = [f"{name}_{c}" for c in (["pool_proj"] if merge_proj else [])
                  + (["1x1"] if s.b1x1 else []) + ["3x3_reduce", "double_3x3_reduce"]]
-        sizes = [getattr(self, c).out_channels for c in cells]
-        operands = self._q_operands(f"{name}/in", cells, f"{name}/in_amax", merge_proj)
-        merged = qconv_site(x, operands, 1, 0, relu_from=sizes[0] if merge_proj else 0)
-        parts = list(torch.split(merged, sizes, dim=1))
-        proj = parts.pop(0) if merge_proj else None
-        branches = [parts.pop(0)] if s.b1x1 else []
-        r3, rd = parts
+        dtype = x.dtype
+        merged = self._q_operands(f"{name}/in", cells, f"{name}/in_amax", merge_proj)
+        ops = {cell: self._cell_operands(f"{name}_{cell}", f"{name}/{site}")
+               for cell, site in (("3x3", "r3_amax"), ("double_3x3_1", "rd_amax"),
+                                  ("double_3x3_2", "d_amax"))}
+        b, c_in, h, w = x.shape
+        ho, wo = (kernels.qconv_out_size(v, 3, s.stride, 1) for v in (h, w))
+        ends = [s.b1x1, s.b1x1 + s.b3x3, s.b1x1 + s.b3x3 + s.d3x3]
+        out = channels_last((b, ends[-1] + (s.proj or c_in), ho, wo), dtype, x.device)
+        o = nhwc(out)
 
-        def conv3x3(cell, inp, site, stride):
-            cell = f"{name}_{cell}"
-            return qconv_site(inp, self._q_operands(cell, (cell,), f"{name}/{site}"), stride, 1)
-
-        branches.append(conv3x3("3x3", r3, "r3_amax", s.stride))
-        d = conv3x3("double_3x3_1", rd, "rd_amax", 1)
-        branches.append(conv3x3("double_3x3_2", d, "d_amax", s.stride))
+        xq = quantize_site(x, merged[3])
+        r3, rd = (xq.new_empty((b, h, w, c)) for c in (s.r3x3, s.rd3x3))
+        proj = x.new_empty((b, h, w, s.proj)) if merge_proj else None
+        segments = ([(proj, None)] if merge_proj else []) + (
+            [(o[..., :ends[0]], None)] if s.b1x1 else []) + [
+            (r3, ops["3x3"][3]), (rd, ops["double_3x3_1"][3])]
+        qconv_site(xq, merged, 1, 0, dtype, segments, relu_from=s.proj if merge_proj else 0)
+        qconv_site(r3, ops["3x3"], s.stride, 1, dtype, [(o[..., ends[0]:ends[1]], None)])
+        d = xq.new_empty((b, h, w, s.d3x3))
+        qconv_site(rd, ops["double_3x3_1"], 1, 1, dtype, [(d, ops["double_3x3_2"][3])])
+        qconv_site(d, ops["double_3x3_2"], s.stride, 1, dtype, [(o[..., ends[1]:ends[2]], None)])
         if merge_proj:
-            branches.append(self._proj_sum(name, proj))
+            self._proj_sum(name, proj.permute(0, 3, 1, 2), out[:, ends[2]:])
         elif s.proj:
             # the max branch: a 3x3 / stride-1 max pool covers every element,
             # so amax(pooled) == amax(x): the proj takes the block's in_amax
             cell = f"{name}_pool_proj"
-            operands = self._q_operands(cell, (cell,), f"{name}/in_amax")
-            branches.append(qconv_site(self._max_pool(x, 1, 1), operands, 1, 0))
+            operands = self._cell_operands(cell, f"{name}/in_amax")
+            pq = quantize_site(self._max_pool(x, 1, 1), operands[3])
+            qconv_site(pq, operands, 1, 0, dtype, [(o[..., ends[2]:], None)])
         else:
-            branches.append(self._max_pool(x, s.stride, 0))
-        return torch.cat(branches, dim=1)
+            out[:, ends[2]:].copy_(self._max_pool(x, s.stride, 0))
+        return out
 
     def _fused_stem(self, x: torch.Tensor, dtype: torch.dtype,
                     input_scale: Optional[torch.Tensor],
@@ -372,7 +422,7 @@ class BNInception(nn.Module):
             y = self._max_pool(y, 2, 0)
         self._record("conv2_3x3_reduce/amax", y)
         if self._mode() == "int8":
-            y = self._qcbr("conv2_3x3", self._qcbr("conv2_3x3_reduce", y))
+            y = self._qconv2(y)
         else:
             y = self._cbr("conv2_3x3_reduce", y, row_mask)
             self._record("conv2_3x3/amax", y)

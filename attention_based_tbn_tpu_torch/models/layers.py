@@ -82,9 +82,11 @@ def conv_bn_sources(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, 
 # running max of |x| at each conv site into its amax, "int8" convolves the
 # int8 activation, quantized with the per-tensor scale max(amax, 1e-6) /
 # 127, with the int8 per-output-channel quantized BN-folded float32 kernel
-# (ops/kernels.quantize, ops/kernels.qconv). Divisions divide by tensors:
-# on a card torch divides by a Python scalar through its reciprocal, which
-# can differ from the JAX package's division in the last bit.
+# (ops/kernels.quantize, ops/kernels.qconv: its output channels-last into
+# column segments, float or quantized for the next site). Divisions divide
+# by tensors: on a card torch divides by a Python scalar through its
+# reciprocal, which can differ from the JAX package's division in the last
+# bit.
 
 QUANT_MODES = ("", "calibrate", "int8")
 
@@ -125,10 +127,13 @@ _site_record = None  # a list while recording_sites() is open
 
 @contextlib.contextmanager
 def recording_sites():
-    """Collect each int8 site that runs inside, in order, as (x, x_scale,
-    the arguments :func:`qconv_site` hands ``kernels.qconv``): the sites a
-    forward ran, to hold the kernels against their plain versions on
-    them."""
+    """Collect each int8 kernel call that runs inside, in order: a
+    standalone quantize (:func:`quantize_site`) as ("quantize", x,
+    x_scale); a conv site (:func:`qconv_site`) as ("qconv", the arguments it
+    hands ``kernels.qconv``: (xq, wq, scale, bias, stride, padding,
+    relu_from, dtype), its segments [(out, x_scale or None), ...]): the
+    launches a forward made, to hold the kernels against their plain
+    versions on them."""
     global _site_record
     sites = []
     _site_record = sites
@@ -138,16 +143,39 @@ def recording_sites():
         _site_record = None
 
 
-def qconv_site(x: torch.Tensor, operands, stride: int, padding: int,
-               relu_from: int = 0) -> torch.Tensor:
-    """One int8 conv site on NCHW ``x`` (its compute dtype kept): quantize
-    with the site's scale, the s8 convolution, dequantize + bias, ReLU on
-    the output channels from ``relu_from`` on."""
-    w8, scale, bias, x_scale = operands
-    args = (kernels.quantize(x, x_scale), w8, scale, bias, stride, padding, relu_from, x.dtype)
+def channels_last(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """An uninitialized (B, C, H, W) tensor in channels-last memory: the
+    int8 towers' activations, written through :func:`nhwc` views."""
+    return torch.empty(shape, dtype=dtype, device=device, memory_format=torch.channels_last)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The (B, H, W, C) view of NCHW ``x`` (contiguous for channels-last
+    memory); a channel slice of it is a kernel segment."""
+    return x.permute(0, 2, 3, 1)
+
+
+def quantize_site(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    """The int8 NHWC input of a site whose float NCHW input ``x`` no qconv
+    produced (the tower's first site, each block's input, a pooled branch):
+    one quantize pass with the site's scale."""
     if _site_record is not None:
-        _site_record.append((x, x_scale, args))
-    return kernels.qconv(*args)
+        _site_record.append(("quantize", x, x_scale))
+    return kernels.quantize(x, x_scale)
+
+
+def qconv_site(xq: torch.Tensor, operands, stride: int, padding: int, dtype: torch.dtype,
+               segments, relu_from: int = 0) -> None:
+    """One int8 conv site on the int8 NHWC input ``xq``: the s8
+    convolution, dequantize + bias, ReLU on the output channels from
+    ``relu_from`` on, rounded to ``dtype``, written into ``segments``
+    (``kernels.qconv``): a float segment into its view, an int8 one
+    quantized for the next site with that site's scale."""
+    w8, scale, bias, _ = operands
+    args = (xq, w8, scale, bias, stride, padding, relu_from, dtype)
+    if _site_record is not None:
+        _site_record.append(("qconv", args, list(segments)))
+    kernels.qconv(*args, segments=segments)
 
 
 @torch.no_grad()

@@ -57,8 +57,9 @@ its input affine in fp32). The plain versions return what the kernels return.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,7 +114,9 @@ _SIGNATURES = {
     "qconv": {
         "quantize_forward": (_I, [_I, _I, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
                                   ctypes.c_longlong, _P]),
-        "qconv_forward": (_I, [_I, _I] + [_P] * 5 + [_I] * 12 + [_P]),
+        "qconv_forward": (_I, [_I] + [_P] * 4 + [_I] * 12 + [_P, _I, _P, _P]),
+        "qconv_wgmma_probe": (_I, [_I, _I, _P, _P, _P, _P]),
+        "qconv_resident_b_limit": (_I, []),
         "qconv_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -1203,11 +1206,26 @@ def wgmma_rs_probe(a, b):
 
 # ---------------------------------------------------- int8 convolution
 
-QCONV_C_IN_MULTIPLE = 32  # one tap's 32 channels a K step (qconv.cu)
+QCONV_C_IN_MULTIPLE = 32  # wgmma's s8 k32 step (qconv.cu)
+QCONV_K_CHUNK = 64  # K bytes a step: 64 channels of one tap, one 64-byte swizzled row
+QCONV_STAGE_CHUNKS = 2  # K steps a stage where B is resident
+QCONV_SEGMENT_MULTIPLE = 32  # output segments start on 32-channel boundaries
+QCONV_MAX_SEGMENTS = 4
+QCONV_TILE_ROWS = 64  # output positions a box: one consumer warpgroup's tile
+QCONV_N_TILES = (64, 96, 128, 160, 192, 224, 256)  # the kernel's N tiles: wgmma m64nNk32
+# The bytes of B (an N tile's every K step) the kernel may keep in shared
+# memory beside its two rings of five stages of two 64-row x 64-channel
+# boxes, the warps' epilogue slabs and the N tile's scale and bias
+# (qconv.cu qconv_resident_b_limit)
+QCONV_RESIDENT_B_BYTES = 232448 - 1024 - (2 * 5 * 2 * 64 * 64 + 8 * 16 * 40 * 4
+                                          + 2 * 256 * 4 + 1024)
 QCONV_KERNELS = (1, 3)
 QCONV_STRIDES = (1, 2)
 QCONV_PADDINGS = (0, 1)
+# quantize's routes (qconv.cu), by x's memory: quantize_route
+QUANTIZE_ROUTES = ("planes", "channels", "channels_narrow")
 _INT32_LIMIT = 2**31
+_VECTOR_BYTES = 16
 
 
 def quantize_plain(x, x_scale):
@@ -1226,7 +1244,7 @@ def quantize_layout(x) -> str:
     neither; any batch stride, as a channel slice of a wider activation
     has): "planes", each (n, c) plane contiguous (NCHW memory), or
     "channels", channels contiguous at any pixel stride (channels-last
-    memory, cuDNN's output on the card)."""
+    memory: cuDNN's outputs, the int8 towers' block buffers)."""
     _, c, h, w = x.shape
     sn, sc, sh, sw = x.stride()
     if (w == 1 or sw == 1) and (h == 1 or sh == w) and (c == 1 or sc == h * w):
@@ -1234,6 +1252,21 @@ def quantize_layout(x) -> str:
     if sc == 1 and (h == 1 or sh == w * sw) and (h * w == 1 or sw >= c):
         return "channels"
     return ""
+
+
+def quantize_route(x) -> str:
+    """The kernel's route for x (a name of QUANTIZE_ROUTES; x in a layout of
+    :func:`quantize_layout`): "planes" for NCHW memory; for channels
+    contiguous, "channels" (16 channels a thread in 16-byte loads) where x's
+    start, pixel stride and batch stride are on 16 bytes, else
+    "channels_narrow" (four channels a thread, x on 4 elements)."""
+    if quantize_layout(x) == "planes":
+        return "planes"
+    size = x.element_size()
+    aligned = (x.data_ptr() % _VECTOR_BYTES == 0
+               and x.stride(3) * size % _VECTOR_BYTES == 0
+               and x.stride(0) * size % _VECTOR_BYTES == 0)
+    return "channels" if aligned else "channels_narrow"
 
 
 def quantize_shape_error(x, x_scale) -> str:
@@ -1261,8 +1294,8 @@ def quantize_shape_error(x, x_scale) -> str:
 
 def quantize(x, x_scale):
     """:func:`quantize_plain` on the CPU; the CUDA kernel on the card (op
-    ``tbn::quantize``), which reads NCHW x as it lies and writes a
-    contiguous (B, H, W, C) int8 tensor."""
+    ``tbn::quantize``), which reads NCHW x as it lies (:func:`quantize_route`)
+    and writes a contiguous (B, H, W, C) int8 tensor."""
     if x.device.type == "cpu":
         return quantize_plain(x, x_scale)
     _require_cuda(x)
@@ -1287,12 +1320,13 @@ def _quantize_op(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     out = _quantize_output(x)
     lib = _library("qconv")
-    channels_last = quantize_layout(x) == "channels"
-    if channels_last and x.data_ptr() % (4 * x.element_size()):
+    route = quantize_route(x)
+    if route == "channels_narrow" and x.data_ptr() % (4 * x.element_size()):
         raise ValueError("quantize: channels-last x must start on 4 elements")
     err = lib.quantize_forward(_DTYPE_CODES[x.dtype], x.device.index or 0, _ptr(x),
-                               _ptr(x_scale), _ptr(out), b, c, h * w, int(channels_last),
-                               x.stride(3), x.stride(0), _stream(x))
+                               _ptr(x_scale), _ptr(out), b, c, h * w,
+                               QUANTIZE_ROUTES.index(route), x.stride(3), x.stride(0),
+                               _stream(x))
     _raise_on_error("quantize", lib.qconv_error_string, err)
     quantize.launches += 1
     return out
@@ -1311,20 +1345,97 @@ def qconv_out_size(size: int, kernel: int, stride: int, padding: int) -> int:
     return (size + 2 * padding - kernel) // stride + 1
 
 
-def qconv_plain(xq, wq, scale, bias, stride: int, padding: int, relu_from: int, dtype):
-    """int8 NHWC ``xq`` (B, H, W, C) conv int8 ``wq`` (C_out, KH, KW, C) ->
-    (B, C_out, H', W') NCHW in ``dtype``: the int32 sums exactly (a float64
-    convolution of the int8 values: every partial sum stays under 2^53),
-    then ``acc * scale`` and ``+ bias`` as two fp32 roundings, the JAX
-    package's dequantize (layers.py:92-96), ReLU on the output channels from
-    ``relu_from`` on, one rounding to ``dtype``. ``scale`` = s_k * x_scale
-    and ``bias`` are (C_out,) fp32."""
+class QconvPlan(NamedTuple):
+    """How the kernel walks one site (qconv.cu): ``route`` "tma_flat" (a 1x1
+    / stride-1 / pad-0 site as a plain GEMM over the B H W positions, boxes
+    of up to 64 in a row) or "tma_box" (boxes of box_w x box_h output positions
+    of box_i images, every tap a shifted TMA box); the N tile of the
+    columns; ``b_resident``: the N tile's whole weight (taps x 64-channel
+    chunks, padded to whole stages, x N x 64 bytes) fits
+    QCONV_RESIDENT_B_BYTES and is loaded once a block, else it streams
+    through the rings with the input."""
+
+    route: str
+    n_tile: int
+    box_w: int
+    box_h: int
+    box_i: int
+    b_resident: bool
+
+    @property
+    def name(self) -> str:
+        """The route as the kernels line reports it."""
+        return f"{self.route}/{'b_resident' if self.b_resident else 'b_streamed'}"
+
+
+def _box_sides(limit: int) -> List[int]:
+    """Box sides up to ``limit``: the powers of two and the limit itself."""
+    sides = {limit}
+    side = 1
+    while side < limit:
+        sides.add(side)
+        side *= 2
+    return sorted(sides)
+
+
+@functools.lru_cache(maxsize=None)
+def qconv_plan(x_shape: Tuple[int, ...], c_out: int, kernel: int, stride: int,
+               padding: int) -> QconvPlan:
+    """The plan of the kernel for NHWC ``x_shape`` (B, H, W, C_in), checked
+    without a card. N: C_out in ceil(C_out / 256) tiles, each the least of
+    QCONV_N_TILES that covers its share (544 -> 3 x 192). The boxes of the
+    "tma_box" route: the fewest boxes of at most QCONV_TILE_ROWS positions
+    over the output (then the widest rows)."""
+    b, h, w, c_in = x_shape
+    ho, wo = (qconv_out_size(s, kernel, stride, padding) for s in (h, w))
+    tiles = -(-c_out // QCONV_N_TILES[-1])
+    n_tile = next(n for n in QCONV_N_TILES if n * tiles >= c_out)
+    steps = kernel * kernel * -(-c_in // QCONV_K_CHUNK)
+    steps += steps % QCONV_STAGE_CHUNKS  # whole stages of two chunks
+    resident = steps * n_tile * QCONV_K_CHUNK <= QCONV_RESIDENT_B_BYTES
+    if kernel == 1 and stride == 1 and padding == 0:
+        return QconvPlan("tma_flat", n_tile, min(QCONV_TILE_ROWS, b * ho * wo), 1, 1, resident)
+    best = None
+    for box_w in _box_sides(min(wo, QCONV_TILE_ROWS)):
+        for box_h in _box_sides(min(ho, QCONV_TILE_ROWS // box_w)):
+            box_i = min(b, QCONV_TILE_ROWS // (box_w * box_h))
+            boxes = -(-wo // box_w) * -(-ho // box_h) * -(-b // box_i)
+            if best is None or (boxes, -box_w) < best[0]:
+                best = ((boxes, -box_w), (box_w, box_h, box_i))
+    return QconvPlan("tma_box", n_tile, *best[1], resident)
+
+
+def qconv_plain(xq, wq, scale, bias, stride: int, padding: int, relu_from: int, dtype,
+                segments=None):
+    """int8 NHWC ``xq`` (B, H, W, C) conv int8 ``wq`` (C_out, KH, KW, C) in
+    ``dtype``: the int32 sums exactly (a float64 convolution of the int8
+    values: every partial sum stays under 2^53), then ``acc * scale`` and
+    ``+ bias`` as two fp32 roundings, the JAX package's dequantize
+    (layers.py:92-96), ReLU on the output channels from ``relu_from`` on,
+    one rounding to ``dtype``. ``scale`` = s_k * x_scale and ``bias`` are
+    (C_out,) fp32.
+
+    ``segments`` None: returns the (B, C_out, H', W') NCHW result. Else the
+    kernel's segment contract (:func:`qconv`): consecutive column ranges,
+    each written into its NHWC ``out`` (B, H', W', C_seg) view, a float
+    segment (x_scale None) copied as it is, an int8 one as
+    :func:`quantize_plain` of it with that x_scale; returns None."""
     acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), wq.permute(0, 3, 1, 2).double(), None,
                    stride, padding).to(torch.int32)
     y = acc.float() * scale.view(1, -1, 1, 1)
     y = y + bias.view(1, -1, 1, 1)
     y[:, relu_from:].clamp_(min=0.0)
-    return y.to(dtype)
+    y = y.to(dtype)
+    if segments is None:
+        return y
+    begin = 0
+    for out, x_scale in segments:
+        part = y[:, begin:begin + out.shape[-1]]
+        out.copy_(part.permute(0, 2, 3, 1) if x_scale is None else quantize_plain(part, x_scale))
+        begin += out.shape[-1]
+    if begin != y.shape[1]:
+        raise ValueError(f"qconv: segments cover {begin} of {y.shape[1]} output channels")
+    return None
 
 
 def qconv_shape_error(xq, wq, scale, bias, stride: int, padding: int, relu_from: int,
@@ -1362,54 +1473,165 @@ def qconv_shape_error(xq, wq, scale, bias, stride: int, padding: int, relu_from:
     return ""
 
 
-def qconv(xq, wq, scale, bias, stride: int, padding: int, relu_from: int, dtype):
-    """:func:`qconv_plain` on the CPU; the CUDA kernel on the card (op
-    ``tbn::qconv``), its dequantize, ReLU and rounding in the epilogue."""
-    if xq.device.type == "cpu":
-        return qconv_plain(xq, wq, scale, bias, stride, padding, relu_from, dtype)
-    _require_cuda(xq)
-    return _qconv_op(xq, wq, scale, bias, stride, padding, relu_from, dtype)
+def _pixel_stride(out) -> int:
+    """The elements from one output position to the next of an NHWC view
+    (B, H, W, C) whose positions lie at one stride in NHWC order (0 when
+    they do not)."""
+    b, h, w, _ = out.shape
+    sizes, strides = (b, h, w), out.stride()[:3]
+    step = next((s // math.prod(sizes[i + 1:]) for i, s in reversed(list(enumerate(strides)))
+                 if sizes[i] > 1), out.shape[3])
+    if out.stride(3) != 1 and out.shape[3] > 1:
+        return 0
+    for i in range(3):
+        if sizes[i] > 1 and strides[i] != step * math.prod(sizes[i + 1:]):
+            return 0
+    return step
 
 
-def _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from, dtype) -> str:
-    problem = qconv_shape_error(xq, wq, scale, bias, stride, padding, relu_from, dtype)
-    if not problem and any(t.device != xq.device for t in (wq, scale, bias)):
-        return f"wq, scale and bias must be on {xq.device}"
-    return problem
+def qconv_segments_error(segments, out_shape, dtype, check_pointers: bool = True) -> str:
+    """Why the kernel cannot write ``segments`` ("" when it can), checked
+    without a card: 1 to QCONV_MAX_SEGMENTS (out, x_scale) pairs in column
+    order, each ``out`` an NHWC (B, H', W', C_seg) view of ``out_shape``'s
+    (B, H', W', C_out) with its positions at one pixel stride and its
+    channels contiguous, C_seg and so each segment's first column a
+    multiple of 32, the pixel stride on 16 bytes; x_scale None: a float
+    segment in ``dtype``; else an int8 segment and its one-element float32
+    scale; the segments cover C_out. ``check_pointers``: each out also
+    starts on 16 bytes (needs real data)."""
+    if not 1 <= len(segments) <= QCONV_MAX_SEGMENTS:
+        return f"{len(segments)} segments, not 1 to {QCONV_MAX_SEGMENTS}"
+    b, ho, wo, c_out = out_shape
+    begin = 0
+    for i, (out, x_scale) in enumerate(segments):
+        if out.dim() != 4 or tuple(out.shape[:3]) != (b, ho, wo) or out.shape[3] < 1:
+            return f"segment {i}: out {tuple(out.shape)} is not ({b}, {ho}, {wo}, C)"
+        width = out.shape[3]
+        if width % QCONV_SEGMENT_MULTIPLE:
+            return (f"segment {i}: columns [{begin}, {begin + width}) not on "
+                    f"{QCONV_SEGMENT_MULTIPLE}-channel boundaries")
+        begin += width
+        if x_scale is None:
+            if out.dtype != dtype:
+                return f"segment {i}: a float segment must be {dtype}, got {out.dtype}"
+        elif (out.dtype != torch.int8 or tuple(x_scale.shape) != (1,)
+              or x_scale.dtype != torch.float32):
+            return (f"segment {i}: an int8 segment takes an int8 out and one float32 "
+                    f"x_scale, got {out.dtype} and {tuple(x_scale.shape)} {x_scale.dtype}")
+        step = _pixel_stride(out)
+        if step < width:
+            return f"segment {i}: out's positions are not at one pixel stride, {out.stride()}"
+        if step * out.element_size() % _VECTOR_BYTES:
+            return f"segment {i}: pixel stride {step} is not on {_VECTOR_BYTES} bytes"
+        if check_pointers and out.data_ptr() % _VECTOR_BYTES:
+            return f"segment {i}: out does not start on {_VECTOR_BYTES} bytes"
+    if begin != c_out:
+        return f"the segments cover {begin} of {c_out} output channels"
+    return ""
 
 
-def _qconv_output(xq, wq, stride, padding, dtype):
+def qconv_output_shape(xq, wq, stride: int, padding: int) -> Tuple[int, int, int, int]:
+    """(B, H', W', C_out) of the site."""
     b, h, w, _ = xq.shape
     k = wq.shape[1]
-    return torch.empty((b, wq.shape[0], qconv_out_size(h, k, stride, padding),
-                        qconv_out_size(w, k, stride, padding)), dtype=dtype, device=xq.device)
+    return (b, qconv_out_size(h, k, stride, padding), qconv_out_size(w, k, stride, padding),
+            wq.shape[0])
 
 
-@torch.library.custom_op("tbn::qconv", mutates_args=(), device_types="cuda")
+def qconv(xq, wq, scale, bias, stride: int, padding: int, relu_from: int, dtype,
+          segments=None):
+    """:func:`qconv_plain` on the CPU; the CUDA kernel on the card (op
+    ``tbn::qconv``): the dequantize, ReLU and rounding in its epilogue, the
+    output channels-last into column segments.
+
+    ``segments``: up to four (out, x_scale) pairs in column order that the
+    output's C_out channels are cut into, each on a 32-channel boundary
+    (:func:`qconv_segments_error`): ``out`` an NHWC (B, H', W', C_seg) view
+    at any pixel stride (a channel slice of a channels-last buffer), written
+    in ``dtype`` where x_scale is None, else quantized for the next int8
+    site with that site's scale (as :func:`quantize` of the rounded values).
+    Returns None. ``segments`` None: one float segment into a new buffer,
+    returned as a (B, C_out, H', W') channels-last tensor."""
+    if segments is None:
+        b, ho, wo, c_out = qconv_output_shape(xq, wq, stride, padding)
+        out = torch.empty((b, ho, wo, c_out), dtype=dtype, device=xq.device)
+        qconv(xq, wq, scale, bias, stride, padding, relu_from, dtype, [(out, None)])
+        return out.permute(0, 3, 1, 2)
+    if xq.device.type == "cpu":
+        return qconv_plain(xq, wq, scale, bias, stride, padding, relu_from, dtype, segments)
+    _require_cuda(xq)
+    _qconv_op(xq, wq, scale, bias, stride, padding, relu_from, dtype,
+              [out for out, _ in segments], [x_scale for _, x_scale in segments])
+    return None
+
+
+def _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from, dtype, outs, x_scales,
+                      check_pointers: bool) -> str:
+    problem = qconv_shape_error(xq, wq, scale, bias, stride, padding, relu_from, dtype)
+    if problem:
+        return problem
+    tensors = [wq, scale, bias] + outs + [s for s in x_scales if s is not None]
+    if any(t.device != xq.device for t in tensors):
+        return f"wq, scale, bias and the segments must be on {xq.device}"
+    return qconv_segments_error(list(zip(outs, x_scales)),
+                                qconv_output_shape(xq, wq, stride, padding), dtype,
+                                check_pointers)
+
+
+@torch.library.custom_op("tbn::qconv", mutates_args=("outs",), device_types="cuda")
 def _qconv_op(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              stride: int, padding: int, relu_from: int, dtype: torch.dtype) -> torch.Tensor:
-    _raise_if("qconv", _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from, dtype))
-    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+              stride: int, padding: int, relu_from: int, dtype: torch.dtype,
+              outs: List[torch.Tensor], x_scales: List[Optional[torch.Tensor]]) -> None:
+    _raise_if("qconv", _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from,
+                                         dtype, outs, x_scales, True))
+    if xq.data_ptr() % _VECTOR_BYTES or wq.data_ptr() % _VECTOR_BYTES:
         raise ValueError("qconv: xq and wq must start on 16 bytes")
     b, h, w, c = xq.shape
-    out = _qconv_output(xq, wq, stride, padding, dtype)
+    k = wq.shape[1]
+    _, ho, wo, c_out = qconv_output_shape(xq, wq, stride, padding)
+    plan = qconv_plan(tuple(xq.shape), c_out, k, stride, padding)
+    fields, end = [], 0
+    for out, x_scale in zip(outs, x_scales):
+        end += out.shape[3]
+        fields += [end, int(x_scale is not None), _ptr(out), _pixel_stride(out),
+                   0 if x_scale is None else _ptr(x_scale)]
     lib = _library("qconv")
-    err = lib.qconv_forward(_DTYPE_CODES[dtype], xq.device.index or 0, _ptr(xq), _ptr(wq),
-                            _ptr(scale), _ptr(bias), _ptr(out), b, h, w, c, wq.shape[0],
-                            wq.shape[1], wq.shape[2], stride, padding, out.shape[2], out.shape[3],
-                            relu_from, _stream(xq))
+    err = lib.qconv_forward(
+        xq.device.index or 0, _ptr(xq), _ptr(wq), _ptr(scale), _ptr(bias), b, h, w, c, c_out, k,
+        stride, padding, ho, wo, relu_from, _DTYPE_CODES[dtype],
+        (ctypes.c_int * 6)(plan.n_tile, plan.box_w, plan.box_h, plan.box_i,
+                           int(plan.route == "tma_flat"), int(plan.b_resident)),
+        len(outs), (ctypes.c_longlong * len(fields))(*fields), _stream(xq))
     _raise_on_error("qconv", lib.qconv_error_string, err)
     qconv.launches += 1
-    return out
 
 
 @_qconv_op.register_fake
-def _(xq, wq, scale, bias, stride, padding, relu_from, dtype):
-    _raise_if("qconv", _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from, dtype))
-    return _qconv_output(xq, wq, stride, padding, dtype)
+def _(xq, wq, scale, bias, stride, padding, relu_from, dtype, outs, x_scales):
+    _raise_if("qconv", _qconv_args_error(xq, wq, scale, bias, stride, padding, relu_from,
+                                         dtype, outs, x_scales, False))
 
 
 qconv.launches = 0
+
+
+def qconv_wgmma_probe(a, b):
+    """(64, 128) x (N, 128) int8 on the card -> (64, N) int32 ``a @ b.T``
+    through four m64nNk32 products of wgmma's s8 form from two 64-byte-
+    swizzled K tiles (qconv.cu), N in QCONV_N_TILES: the check of
+    wgmma.cuh's s8 form; counts no launch."""
+    _require_cuda(a)
+    n = b.shape[0]
+    if (tuple(a.shape) != (64, 128) or tuple(b.shape) != (n, 128) or n not in QCONV_N_TILES
+            or a.dtype != torch.int8 or b.dtype != torch.int8 or not a.is_contiguous()
+            or not b.is_contiguous()):
+        raise ValueError(f"qconv_wgmma_probe: operands must be contiguous int8 (64, 128) and "
+                         f"(N, 128), N in {QCONV_N_TILES}")
+    lib = _library("qconv")
+    c = torch.empty((64, n), device=a.device, dtype=torch.int32)
+    err = lib.qconv_wgmma_probe(a.device.index or 0, n, _ptr(a), _ptr(b), _ptr(c), _stream(a))
+    _raise_on_error("qconv_wgmma_probe", lib.qconv_error_string, err)
+    return c
 
 
 WRAPPERS = {"pe_block": pe_block, "mha": mha, "max_pool": ceil_max_pool2d,

@@ -13,11 +13,13 @@ host's decoders (libjpeg's header and library, cv2, nvJPEG's header, g++:
 the env phase), holds the native library
 to the checksums recorded with ``native/testdata`` (cv2's decodes of six
 JPEGs, the JAX package's read of a 48 kHz WAV) and times its decode (the
-native_io phase), counts the wgmma (HGMMA)
+native_io phase), counts the wgmma (HGMMA, IGMMA)
 instructions in each library's SASS, holds Hopper's wgmma against
 ``torch.matmul`` (one m64n64k16 product without swizzle, a K = 64 one with
 the 128-byte swizzle the kernels use, and a K = 64 one of the register-A
-form with A by ldmatrix), and holds each kernel against its plain PyTorch
+form with A by ldmatrix) and wgmma's s8 form against the exact integer
+product (m64nNk32 at every N tile of qconv, the 64-byte swizzle), and
+holds each kernel against its plain PyTorch
 version at the main paths' shapes, with parameters in the activations'
 type as the models pass them: conv3x3 also at BN-Inception shapes (one on
 its streaming route) and a ragged one, each record naming the route the
@@ -59,10 +61,12 @@ after:
   plain pool; the same step with ``tpu.remat`` (``remat_step``): its state
   bit-equal to the plain step's, its peak memory below it;
 * the int8 towers (``int8_path``, ``tpu.quantize=int8``): the serving
-  flagship calibrated, one b=10 int8 forward through ``quantize`` and
-  ``qconv`` (the launch counts from the code, logits within rel-RMSE 0.2
-  of bf16), both kernels bit-equal to their plain versions at every site
-  shape of a b=1 and of that b=10 forward;
+  flagship calibrated, one b=10 int8 forward through ``quantize`` (12 a
+  tower) and ``qconv`` (43 a tower; 31 inputs a tower quantized in the
+  epilogue of the qconv before them), logits within rel-RMSE 0.2 of bf16,
+  both kernels bit-equal to their plain versions at every site shape of a
+  b=1 and of that b=10 forward, every output segment included; times at
+  the largest sites beside ``torch._int_mm`` and cuDNN's bf16 conv;
 * the training entry point: the port's ``main`` in train mode on a
   tri-modal fixture (RGB JPEG frames, Flow JPEG pairs, WAV audio, by the
   port's writers; 40 training clips: 3 batches of 12 and a ragged one of 4;
@@ -301,13 +305,19 @@ TRAIN_AGREEMENT_RTOL = 1e-5
 # The int8 towers (int8_path): calibration on INT8_CALIBRATION seeded b=10
 # batches; the int8 logits within INT8_REL_RMSE of the bf16 ones (the JAX
 # package's bound, tests/test_quantize.py test_flagship_quantized_forward).
-# Launches a tower, from models/bn_inception.py: the two conv2 cells, four
-# sites a block (the merged 1x1, 3x3, double_3x3_1, double_3x3_2), and the
-# proj of each max-pool branch (inception_5b); one quantize each.
+# Launches a tower, from models/bn_inception.py: qconv at the two conv2
+# cells, four sites a block (the merged 1x1, 3x3, double_3x3_1,
+# double_3x3_2) and the proj of each max-pool branch (inception_5b): 43;
+# quantize where no qconv produced the site's input (conv2_3x3_reduce's,
+# each block's, the max-pool branch's pooled input): 12. The other 31
+# inputs are int8 segments of the qconv before them.
 INT8_CALIBRATION = 2
 INT8_REL_RMSE = 0.2
-INT8_LAUNCHES_PER_TOWER = 2 + sum(4 + (b.proj > 0 and b.pool == "max")
+INT8_QCONV_PER_TOWER = 2 + sum(4 + (b.proj > 0 and b.pool == "max")
+                               for _, b in BN_INCEPTION_BLOCKS)
+INT8_QUANTIZE_PER_TOWER = 1 + sum(1 + (b.proj > 0 and b.pool == "max")
                                   for _, b in BN_INCEPTION_BLOCKS)
+INT8_FOLDED_PER_TOWER = 1 + 3 * len(BN_INCEPTION_BLOCKS)
 
 _LOG = None  # file that every emitted line is also appended to (--out)
 
@@ -962,19 +972,33 @@ def check_wgmma(failures: list) -> None:
           "max_abs_err": err, "tolerance": tol, "ok": err <= tol})
     if not err <= tol:
         failures.append(f"wgmma register-A form: err {err} > {tol}")
+    # the s8 form (qconv.cu): m64nNk32 at every N tile, 64-byte swizzle, K =
+    # 128 as two K tiles, against the exact integer product
+    gen8 = torch.Generator(device="cuda").manual_seed(8)
+    for n in kernels.QCONV_N_TILES:
+        a, b = (torch.randint(-127, 128, (rows, 128), device="cuda", dtype=torch.int8,
+                              generator=gen8) for rows in (64, n))
+        got = kernels.qconv_wgmma_probe(a, b)
+        want = (a.double() @ b.double().T).to(torch.int32)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        emit({"phase": "wgmma_check", "layout": "s8_swizzle_64B", "shape": [64, n, 128],
+              "max_abs_err": err, "tolerance": 0, "ok": err == 0})
+        if err:
+            failures.append(f"wgmma s8 form m64n{n}k32: err {err} against the integer product")
 
 
 def sass_counts() -> dict:
     """Instructions per built library in its SASS (cuobjdump --dump-sass):
-    HGMMA is wgmma, HMMA mma.sync on bf16 / fp16, IMMA mma.sync on int8,
-    FFMA the fp32 FMA units."""
+    HGMMA is wgmma on bf16 / fp16, IGMMA wgmma on int8, HMMA mma.sync on
+    bf16 / fp16, IMMA mma.sync on int8, FFMA the fp32 FMA units."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     counts = {}
     for name in build.KERNELS:
         sass = subprocess.run([tool, "--dump-sass", build.library_path(name)],
                               capture_output=True, text=True, check=True).stdout.splitlines()
         counts[name] = {op: sum(f" {op}" in line for line in sass)
-                        for op in ("HGMMA", "HMMA", "IMMA", "FFMA")}
+                        for op in ("HGMMA", "IGMMA", "HMMA", "IMMA", "FFMA")}
     return counts
 
 
@@ -1089,7 +1113,7 @@ CATEGORIES = (
     ("max_pool_kernel", ("ceil_pool_forward", "ceil_pool_backward")),
     ("fused_stem", ("fused_stem_kernel", "stem_mma_kernel")),
     ("qconv", ("qconv_kernel",)),
-    ("quantize", ("quantize_kernel", "quantize_nhwc_kernel")),
+    ("quantize", ("quantize_kernel", "quantize_vec_kernel", "quantize_nhwc_kernel")),
     ("consensus_heads", ("consensus_heads_kernel",)),
     # the ResNet / VGG towers' BatchNorm at eval: y * scale + offset after
     # the conv (models/layers.conv_bn)
@@ -1459,12 +1483,13 @@ def remat_step(state, step, batches, peak_gib: float, p50: float, card: str,
                         f"{peaks[False]:.2f} GiB without")
 
 
-def int8_cost(xq, wq, out) -> tuple:
-    """qconv: its int8 input and weight, the fp32 scale and bias and the
-    output once; 2 M N K int8 operations at the int8 peak."""
-    positions = out.shape[0] * out.shape[2] * out.shape[3]
+def int8_cost(xq, wq, outputs) -> tuple:
+    """qconv: its int8 input and weight, the fp32 scale and bias once, and
+    each output (a float segment in its type, an int8 one in bytes) once;
+    2 M N K int8 operations at the int8 peak."""
+    positions = xq.shape[0] * outputs[0].shape[1] * outputs[0].shape[2]
     moved = (xq.numel() + wq.numel() + 8 * wq.shape[0]
-             + out.numel() * out.element_size())
+             + sum(out.numel() * out.element_size() for out in outputs))
     return bound(moved, 2 * positions * wq.numel(), torch.int8)
 
 
@@ -1474,78 +1499,156 @@ def quantize_cost(x) -> tuple:
     return bound(x.numel() * (x.element_size() + 1), 4 * x.numel(), torch.float32)
 
 
+def segment_outputs(segments, dtype) -> list:
+    """Fresh destinations of a recorded site's segments: each float one in
+    ``dtype`` with its view's sizes and strides (a channel slice of a block
+    buffer keeps its pixel stride), each int8 one as it was, with its
+    scale."""
+    outs = []
+    for out, x_scale in segments:
+        if x_scale is None:
+            outs.append((torch.empty_strided(out.size(), out.stride(), dtype=dtype,
+                                             device=out.device), None))
+        else:
+            outs.append((torch.empty_like(out), x_scale))
+    return outs
+
+
+def segment_layout(segments) -> tuple:
+    return tuple((out.shape[-1], "float" if x_scale is None else "int8", out.stride(2))
+                 for out, x_scale in segments)
+
+
 def int8_site_checks(sites, batch: int) -> list:
-    """Each distinct site shape's quantize and qconv (fp32 and bf16 output)
-    of a forward's recorded ``sites`` (``layers.recording_sites``) against
-    the plain versions on the recorded inputs: a record each."""
+    """Each distinct site shape of a forward's recorded ``sites``
+    (``layers.recording_sites``) against the plain versions on the recorded
+    inputs: quantize (its route), and qconv at fp32 and bf16 with the site's
+    segments (each float segment in that type, each int8 one as integers):
+    a record each."""
     records, seen = [], set()
-    for x, x_scale, args in sites:
-        key = ("quantize", tuple(x.shape), kernels.quantize_layout(x), str(x.dtype))
-        if key not in seen:
+    for kind, *site in sites:
+        if kind == "quantize":
+            x, x_scale = site
+            key = ("quantize", tuple(x.shape), kernels.quantize_route(x), str(x.dtype))
+            if key in seen:
+                continue
             seen.add(key)
             got, want = kernels.quantize(x, x_scale), kernels.quantize_plain(x, x_scale)
             records.append({"kernel": "quantize", "batch": batch, "shape": list(x.shape),
-                            "layout": key[2], "dtype": key[3].replace("torch.", ""),
+                            "route": key[2], "dtype": key[3].replace("torch.", ""),
                             "max_abs_err": (got.int() - want.int()).abs().max().item()})
+            continue
+        args, segments = site
         xq, wq, scale, bias, stride, padding, relu_from, _ = args
-        key = ("qconv", tuple(xq.shape), tuple(wq.shape), stride, padding, relu_from)
+        key = ("qconv", tuple(xq.shape), tuple(wq.shape), stride, padding, relu_from,
+               segment_layout(segments))
         if key in seen:
             continue
         seen.add(key)
+        plan = kernels.qconv_plan(tuple(xq.shape), wq.shape[0], wq.shape[1], stride, padding)
         for dtype in (torch.float32, torch.bfloat16):
-            args = (xq, wq, scale, bias, stride, padding, relu_from, dtype)
-            got, want = kernels.qconv(*args), kernels.qconv_plain(*args)
+            call = (xq, wq, scale, bias, stride, padding, relu_from, dtype)
+            got = segment_outputs(segments, dtype)
+            want = segment_outputs(segments, dtype)
+            kernels.qconv(*call, segments=got)
+            kernels.qconv_plain(*call, segments=want)
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for (g, _), (w, _) in zip(got, want)]
             records.append({"kernel": "qconv", "batch": batch, "x": list(xq.shape),
                             "w": list(wq.shape), "stride": stride, "padding": padding,
                             "relu_from": relu_from, "dtype": str(dtype).replace("torch.", ""),
-                            "max_abs_err": (got.float() - want.float()).abs().max().item()})
+                            "route": plan.name, "n_tile": plan.n_tile,
+                            "box": [plan.box_w, plan.box_h, plan.box_i],
+                            "segments": [[w, k] for w, k, _ in key[-1]],
+                            "segment_errs": errs, "max_abs_err": max(errs)})
             del got, want
     torch.cuda.synchronize()
     return records
 
 
+def int8_route_counts(sites) -> dict:
+    """Launches of a forward's recorded ``sites`` by kernel route."""
+    counts: dict = {"quantize": {}, "qconv": {}}
+    for kind, *site in sites:
+        if kind == "quantize":
+            route = kernels.quantize_route(site[0])
+        else:
+            xq, wq, _, _, stride, padding = site[0][:6]
+            route = kernels.qconv_plan(tuple(xq.shape), wq.shape[0], wq.shape[1], stride,
+                                       padding).name
+        counts[kind][route] = counts[kind].get(route, 0) + 1
+    return counts
+
+
 def int8_site_times(sites) -> dict:
-    """Times of the largest quantize site (bytes) and the largest 1x1 and
+    """Times at the largest quantize site (bytes) and the largest 1x1 and
     3x3 qconv sites (operations) of a forward's recorded ``sites``:
-    event-timed and by CUDA graph, the plain versions, the bound; beside
-    qconv the bf16 cuDNN conv of the same site (its float input as the
-    tower handed it, a seeded bf16 weight of its shape), and at the 1x1
-    site torch._int_mm on its int8 GEMM (the int32 products alone, no
-    dequantize)."""
-    x, x_scale, _ = max(sites, key=lambda site: site[0].numel())
+    event-timed and by CUDA graph, the plain versions, the bound. quantize
+    as the tower hands it its input (its route) and on an NCHW copy (the
+    planes route). qconv with an all-float output (one float segment) and
+    as the tower runs it (its segments), each with its own bound; beside it cuDNN's bf16 conv of the
+    site on NCHW and on channels-last input (the int8 input widened, a
+    seeded bf16 weight), and at the 1x1 site torch._int_mm on its int8 GEMM
+    (the int32 products alone, no dequantize)."""
+    x, x_scale = max((site[1:] for site in sites if site[0] == "quantize"),
+                     key=lambda site: site[0].numel())
+    planes = x.contiguous()
     bound_ms, bound_by = quantize_cost(x)
     out = {"quantize": {
-        "shape": list(x.shape), "layout": kernels.quantize_layout(x),
+        "shape": list(x.shape), "route": kernels.quantize_route(x),
         "ms": event_ms(lambda: kernels.quantize(x, x_scale), 20),
         "graph_ms": graph_ms(lambda: kernels.quantize(x, x_scale)),
+        "planes_ms": event_ms(lambda: kernels.quantize(planes, x_scale), 20),
+        "planes_graph_ms": graph_ms(lambda: kernels.quantize(planes, x_scale)),
         "plain_ms": event_ms(lambda: kernels.quantize_plain(x, x_scale), 3),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}}
+    del planes
 
     def operations(site):
-        xq, wq, _, _, stride, padding = site[2][:6]
+        xq, wq, _, _, stride, padding = site[1][:6]
         ho, wo = (kernels.qconv_out_size(s, wq.shape[1], stride, padding) for s in xq.shape[1:3])
         return xq.shape[0] * ho * wo * wq.numel()
 
     for k in (1, 3):
-        x_float, _, args = max((site for site in sites if site[2][1].shape[1] == k),
-                               key=operations)
+        _, args, segments = max((site for site in sites
+                                 if site[0] == "qconv" and site[1][1].shape[1] == k),
+                                key=operations)
         xq, wq, scale, bias, stride, padding, relu_from, dtype = args
-        bound_ms, bound_by = int8_cost(xq, wq, kernels.qconv(*args))
+        plan = kernels.qconv_plan(tuple(xq.shape), wq.shape[0], k, stride, padding)
+        whole = kernels.qconv(*args)
+        bound_ms, bound_by = int8_cost(xq, wq, [layers.nhwc(whole)])
+        tower = segment_outputs(segments, dtype)
+        tower_bound_ms, _ = int8_cost(xq, wq, [o for o, _ in tower])
         gen = torch.Generator(device=xq.device).manual_seed(13)
         weight = (torch.randn(wq.permute(0, 3, 1, 2).shape, device=xq.device, generator=gen)
                   * 0.05).to(dtype)
         conv_bias = torch.zeros(wq.shape[0], device=xq.device, dtype=dtype)
+        x_nchw = xq.permute(0, 3, 1, 2).to(dtype).contiguous()
+        x_cl = x_nchw.contiguous(memory_format=torch.channels_last)
+        weight_cl = weight.contiguous(memory_format=torch.channels_last)
 
         def cudnn():
-            return torch.nn.functional.conv2d(x_float, weight, conv_bias, stride, padding)
+            return torch.nn.functional.conv2d(x_nchw, weight, conv_bias, stride, padding)
+
+        def cudnn_cl():
+            return torch.nn.functional.conv2d(x_cl, weight_cl, conv_bias, stride, padding)
 
         record = {
             "x": list(xq.shape), "w": list(wq.shape), "stride": stride, "padding": padding,
+            "route": plan.name, "n_tile": plan.n_tile,
+            "box": [plan.box_w, plan.box_h, plan.box_i],
             "ms": event_ms(lambda: kernels.qconv(*args), 20),
             "graph_ms": graph_ms(lambda: kernels.qconv(*args)),
             "plain_ms": event_ms(lambda: kernels.qconv_plain(*args), 3),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "tower_segments": [[o.shape[-1], "float" if s is None else "int8"]
+                               for o, s in segments],
+            "tower_ms": event_ms(lambda: kernels.qconv(*args, segments=tower), 20),
+            "tower_graph_ms": graph_ms(lambda: kernels.qconv(*args, segments=tower)),
+            "tower_bound_ms": tower_bound_ms,
             "cudnn_bf16_conv_ms": event_ms(cudnn, 20), "cudnn_bf16_conv_graph_ms": graph_ms(cudnn),
+            "cudnn_bf16_conv_channels_last_ms": event_ms(cudnn_cl, 20),
+            "cudnn_bf16_conv_channels_last_graph_ms": graph_ms(cudnn_cl),
             "library_ms": None}
         if k == 1:
             a = xq.reshape(-1, xq.shape[-1])
@@ -1554,6 +1657,7 @@ def int8_site_times(sites) -> dict:
                 lambda: torch._int_mm(a, b), 20)
             record["int_mm_graph_ms"] = graph_ms(lambda: torch._int_mm(a, b))
         out[f"qconv_{k}x{k}"] = record
+        del whole, tower, x_nchw, x_cl
     return out
 
 
@@ -1565,13 +1669,15 @@ def int8_path(card: str, failures: list) -> dict:
     ``models.tbn.calibrate_quantization``); (a) calibrated on
     INT8_CALIBRATION seeded b=10 batches; (b) 126 amaxes, all > 0; (c) one
     b=10 int8 forward with the launch counts set to 0 just before and read
-    just after: quantize and qconv INT8_LAUNCHES_PER_TOWER a tower,
-    pe_block and mha launched; (d) its logits against the same weights'
-    bf16 forward, rel-RMSE < INT8_REL_RMSE, top-1 agreement beside it; (e)
-    every distinct site shape of a b=1 and of the b=10 forward (RGB, Flow
-    and Audio towers), quantize and qconv (fp32 and bf16 outputs) against
-    the plain versions on the recorded inputs: bit-equal; (f) times at the
-    largest sites of the b=10 forward (int8_site_times); (g) device time of the
+    just after: quantize INT8_QUANTIZE_PER_TOWER and qconv
+    INT8_QCONV_PER_TOWER a tower, pe_block and mha launched; (d) its logits
+    against the same weights' bf16 forward, rel-RMSE < INT8_REL_RMSE, top-1
+    agreement beside it; (e) every distinct site shape of a b=1 and of the
+    b=10 forward (RGB, Flow and Audio towers), quantize and qconv (fp32 and
+    bf16 outputs, every segment) against the plain versions on the
+    recorded inputs: bit-equal; the recorded b=10 forward's routes and its
+    INT8_FOLDED_PER_TOWER int8 segments a tower; (f) times at the largest
+    sites of the b=10 forward (int8_site_times); (g) device time of the
     b=10 int8 forward and of the bf16 one, by profiler. Returns (the
     launches of (c), the kernels line's records)."""
     import dataclasses
@@ -1607,11 +1713,13 @@ def int8_path(card: str, failures: list) -> dict:
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in kernels.WRAPPERS.items()}
         want = plain(request)
-    expected = INT8_LAUNCHES_PER_TOWER * len(spec.modality)
-    for name in ("quantize", "qconv"):
-        if launches[name] != expected:
+    towers = len(spec.modality)
+    expected = {"quantize": INT8_QUANTIZE_PER_TOWER * towers,
+                "qconv": INT8_QCONV_PER_TOWER * towers}
+    for name, count in expected.items():
+        if launches[name] != count:
             failures.append(f"int8: {name} launched {launches[name]} times in a b=10 forward, "
-                            f"expected {expected} ({INT8_LAUNCHES_PER_TOWER} a tower)")
+                            f"expected {count} ({count // towers} a tower)")
     for name in ("pe_block", "mha"):
         if launches[name] < 1:
             failures.append(f"int8: kernel {name} was not launched")
@@ -1633,6 +1741,12 @@ def int8_path(card: str, failures: list) -> dict:
                 model({k: v[:b] for k, v in request.items()})
             checks += int8_site_checks(sites, b)
         times = int8_site_times(sites)
+    routes = int8_route_counts(sites)
+    folded = sum(x_scale is not None for kind, *site in sites if kind == "qconv"
+                 for _, x_scale in site[1])
+    if folded != INT8_FOLDED_PER_TOWER * towers:
+        failures.append(f"int8: {folded} int8 segments in a b=10 forward, expected "
+                        f"{INT8_FOLDED_PER_TOWER * towers}")
     del sites
     torch.cuda.empty_cache()
     for record in checks:
@@ -1654,7 +1768,8 @@ def int8_path(card: str, failures: list) -> dict:
     profiles = {"int8": device_profile(forward(model)), "bf16": device_profile(forward(plain))}
     result = {"phase": "int8_path", "gpu": card, "batch": 10, "segments": n,
               "calibrate_s": calibrate_s, "amaxes": len(amaxes), "amax_min": min(amaxes),
-              "launches": launches, "expected_launches_each": expected,
+              "launches": launches, "expected_launches": expected, "routes": routes,
+              "folded_quantizes": folded,
               "logits": agreement, "site_shapes_checked": len(checks),
               "quantize_max_abs_err": quantize_err, "qconv_max_abs_err": qconv_err,
               "times": times,
@@ -1665,8 +1780,9 @@ def int8_path(card: str, failures: list) -> dict:
               "seconds": time.perf_counter() - start}
     emit(result)
     qconv_1x1 = times["qconv_1x1"]
-    line = {"quantize": {**times["quantize"], "max_abs_err": quantize_err},
-            "qconv": {**qconv_1x1, "max_abs_err": qconv_err}}
+    line = {"quantize": {**times["quantize"], "max_abs_err": quantize_err,
+                         "routes": routes["quantize"]},
+            "qconv": {**qconv_1x1, "max_abs_err": qconv_err, "routes": routes["qconv"]}}
     del model, plain, batches, calibration, request
     torch.cuda.empty_cache()
     return launches, line
@@ -3255,8 +3371,8 @@ def main(argv=None) -> int:
     for name in ("pe_block", "mha", "fused_stem", "conv3x3"):  # their bf16 routes run on wgmma
         if sass[name]["HGMMA"] < 1:
             failures.append(f"{name}: no HGMMA instruction in its library's SASS")
-    if sass["qconv"]["IMMA"] < 1:  # the int8 tensor cores
-        failures.append("qconv: no IMMA instruction in its library's SASS")
+    if sass["qconv"]["IGMMA"] < 1:  # the int8 tensor cores, by wgmma (IMMA reported beside)
+        failures.append("qconv: no IGMMA (s8 wgmma) instruction in its library's SASS")
     # the limits the wrappers check without a card, against the library's own
     limits = {str(dt).replace("torch.", ""): (kernels.PE_BLOCK_LIMITS[dt],
                                                kernels.pe_block_library_limits(dt))
@@ -3280,6 +3396,13 @@ def main(argv=None) -> int:
     if resident_max[0] != resident_max[1]:
         failures.append(f"conv3x3 resident route's largest C_in: kernels.py says "
                         f"{resident_max[0]}, the library {resident_max[1]}")
+    resident_b = (kernels.QCONV_RESIDENT_B_BYTES,
+                  kernels._library("qconv").qconv_resident_b_limit())
+    emit({"phase": "qconv_limits", "resident_b_bytes": resident_b,
+          "n_tiles": kernels.QCONV_N_TILES, "k_chunk": kernels.QCONV_K_CHUNK})
+    if resident_b[0] != resident_b[1]:
+        failures.append(f"qconv resident B bytes: kernels.py says {resident_b[0]}, "
+                        f"the library {resident_b[1]}")
 
     mha_lib = kernels._library("mha")
     limits = (kernels.MHA_LIMITS,
@@ -3403,7 +3526,8 @@ def main(argv=None) -> int:
          "launches": launches[name], "max_abs_err": main_case[name]["max_abs_err"],
          "ms": main_case[name]["ms"], "plain_ms": main_case[name]["plain_ms"],
          "bound_ms": main_case[name]["bound_ms"], "bound_by": main_case[name]["bound_by"],
-         "library_ms": main_case[name]["library_ms"]}
+         "library_ms": main_case[name]["library_ms"],
+         **({"routes": main_case[name]["routes"]} if "routes" in main_case[name] else {})}
         for name in SOURCES
     ]})
     if failures:

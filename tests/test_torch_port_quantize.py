@@ -284,7 +284,8 @@ def qconv_calls(case):
     load_quant_stats(model, case["jax_stats"])
     with torch.no_grad(), layers.recording_sites() as sites:
         model.eval()(_to_torch(case["batches"][0]))
-    return [(wq.numpy().copy(), scale.numpy().copy()) for _, _, (_, wq, scale, *_) in sites]
+    return [(args[1].numpy().copy(), args[2].numpy().copy())
+            for kind, args, *_ in sites if kind == "qconv"]
 
 
 @pytest.mark.parametrize("tower", TOWERS)
@@ -542,7 +543,11 @@ def test_drivers_fail_fast(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_equal_plain_on_the_card(dtype):
     """quantize and qconv bit-equal to their plain versions at BN-Inception
-    site shapes (1x1 merged, 3x3 stride 1 and 2, a channel slice)."""
+    site shapes (1x1 merged, 3x3 stride 1 and 2, a channel slice), with
+    the all-float output and with the segment contract: a float segment
+    into a channel slice of a channels-last buffer (its other channels
+    untouched), a scratch float segment and two int8 ones for the next
+    sites, as a block's merged 1x1 writes them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -559,7 +564,27 @@ def test_cuda_kernels_equal_plain_on_the_card(dtype):
         w8, s_k = layers.quantize_weight(kf)
         bias = torch.randn(c_out, device="cuda", generator=gen)
         pad = 1 if k == 3 else 0
-        got = kernels.qconv(xq, w8, s_k * x_scale, bias, stride, pad, 32, dtype)
-        want = kernels.qconv_plain(xq, w8, s_k * x_scale, bias, stride, pad, 32, dtype)
+        args = (xq, w8, s_k * x_scale, bias, stride, pad, 32, dtype)
+        got = kernels.qconv(*args)
+        want = kernels.qconv_plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (c_in, c_out, h, k, stride)
+        if c_out <= 96:
+            continue
+        # the segments: [32 float scratch | a slice of a wider buffer | int8 | int8]
+        b, ho, wo = want.shape[0], want.shape[2], want.shape[3]
+        widths = (32, c_out - 96, 32, 32)
+        results = []
+        for run in (kernels.qconv, kernels.qconv_plain):
+            buffer = torch.full((b, widths[1] + 64, ho, wo), 7.0, device="cuda",
+                                dtype=dtype).contiguous(memory_format=torch.channels_last)
+            segments = [(torch.empty((b, ho, wo, 32), device="cuda", dtype=dtype), None),
+                        (layers.nhwc(buffer)[..., 32:32 + widths[1]], None)]
+            segments += [(torch.empty((b, ho, wo, 32), device="cuda", dtype=torch.int8),
+                          layers.activation_scale(torch.tensor(v, device="cuda")))
+                         for v in (3.0, 11.0)]
+            run(*args, segments=segments)
+            results.append([out for out, _ in segments] + [buffer])
+        torch.cuda.synchronize()
+        for got_t, want_t in zip(*results):
+            assert torch.equal(got_t, want_t), (c_in, c_out, h, k, stride)
