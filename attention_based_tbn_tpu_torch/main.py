@@ -33,18 +33,7 @@ from .config import load_config, make_run_dir
 from .parallel.mesh import make_mesh, shutdown
 from .utils.logging import setup_log
 from .utils.misc import get_modality
-
-
-def device_for(cfg) -> str:
-    """"cpu" for ``tpu.platform=cpu``, "cuda" for "" (the default), "gpu"
-    or "cuda"; other platforms are refused. The card of each rank is
-    ``parallel/mesh.make_mesh``'s."""
-    platform = str(cfg.get_path("tpu.platform", "") or "").lower()
-    if platform == "cpu":
-        return "cpu"
-    if platform in ("", "gpu", "cuda"):
-        return "cuda"
-    raise ValueError(f"tpu.platform={platform!r}: the port runs on 'cpu' or 'cuda'")
+from .utils.platform import device_for, note_unused_keys
 
 
 def build_once_per_host(cfg, mesh) -> None:
@@ -97,6 +86,7 @@ def main(argv=None):
     logger.info(f"Modality: {modality}")
     logger.info(f"Run dir: {run_dir}")
     logger.info(f"Device: {mesh.device}")
+    note_unused_keys(cfg, logger)
     logger.info(mesh.describe())
     logger.info("-" * 58)
 

@@ -102,8 +102,8 @@ class PositionalEncoding(nn.Sequential):
 
 
 class MultiheadAttention(nn.Module):
-    """torch.nn.MultiheadAttention's parameters (packed in_proj, out_proj)
-    with the single-query, key-is-value forward the TBN uses."""
+    """torch.nn.MultiheadAttention's parameters (packed in_proj, out_proj),
+    batch-first: query (B, L, E), key and value (B, S, E)."""
 
     def __init__(self, embed_dim: int = 1024, num_heads: int = 4, dropout_rate: float = 0.0):
         super().__init__()
@@ -121,24 +121,64 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias.zero_()
         reset_linear_(self.out_proj, generator)
 
-    def forward(self, query: torch.Tensor, keyval: torch.Tensor, use_kernels: bool,
-                generator: torch.Generator = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """query (B, E), keyval (B, S, E) -> (B, E) output and (B, 1, S)
-        head-averaged weights, both in the query's dtype; the projections'
-        weights and biases rounded to it first (attention.py:181-186 of the
-        JAX package). In training the attention probabilities are dropped
-        out with ``generator``'s noise."""
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                use_kernels: bool, generator: torch.Generator = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """query (B, L, E), key and value (B, S, E) -> (B, L, E) output and
+        (B, L, S) head-averaged weights, both in the query's dtype; the
+        projections' weights and biases rounded to it first (attention.py:
+        181-186 of the JAX package). In training the attention probabilities
+        are dropped out with ``generator``'s noise, and the weights returned
+        are the dropped ones.
+
+        The TBN's case, one query position with the key as the value, runs
+        the kernel's arithmetic: ``kernels.mha`` at eval with the kernels on
+        (where the JAX package runs ``mha_pallas``), else its plain version.
+        Every other case runs :func:`multi_head_attention`, the JAX
+        package's general composition."""
         params = self._cast.get("mha", (self.in_proj_weight, self.in_proj_bias,
                                         self.out_proj.weight, self.out_proj.bias), query.dtype)
-        args = (query, keyval, *params, self.num_heads)
+        drop = None
         if self.training:
-            out, wts = kernels.mha_plain(
-                *args, drop=lambda p: dropout(p, self.dropout_rate, generator))
+            drop = lambda p: dropout(p, self.dropout_rate, generator)  # noqa: E731
+        if query.shape[1] != 1 or key is not value:
+            return multi_head_attention(query, key, value, *params, self.num_heads, drop)
+        args = (query[:, 0], key, *params, self.num_heads)
+        if self.training:
+            out, wts = kernels.mha_plain(*args, drop=drop)
         elif use_kernels:
             out, wts = kernels.mha(*args)
         else:
             out, wts = kernels.mha_plain(*args)
-        return out, wts[:, None, :]
+        return out[:, None], wts[:, None]
+
+
+def multi_head_attention(query, key, value, in_proj_weight, in_proj_bias, out_proj_weight,
+                         out_proj_bias, num_heads: int, drop=None):
+    """(B, L, E) x (B, S, E) x (B, S, E) -> ((B, L, E), (B, L, S) head-averaged
+    weights) in the query's dtype, as the JAX package's MultiheadAttention
+    computes it without the kernel: the projections in that dtype, q scaled
+    before the dot product, logits and softmax in float32, the probabilities
+    rounded to the dtype, then ``drop`` (dropout, training only), the
+    weighted sum accumulated in float32. The weights are the head mean of
+    the dropped probabilities."""
+    dtype = query.dtype
+    b, l, e = query.shape
+    s = key.shape[1]
+    hd = e // num_heads
+    wq, wk, wv = in_proj_weight.chunk(3)
+    bq, bk, bv = in_proj_bias.chunk(3)
+    q = (F.linear(query, wq) + bq).view(b, l, num_heads, hd).transpose(1, 2)
+    k = (F.linear(key, wk) + bk).view(b, s, num_heads, hd).transpose(1, 2)
+    v = (F.linear(value, wv) + bv).view(b, s, num_heads, hd).transpose(1, 2)
+    q = q / torch.tensor(hd, dtype=dtype).sqrt().to(q.device)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    if drop is not None:
+        probs = drop(probs)
+    out = torch.matmul(probs.float(), v.float()).to(dtype)
+    out = F.linear(out.transpose(1, 2).reshape(b, l, e), out_proj_weight) + out_proj_bias
+    return out, probs.float().mean(dim=1).to(dtype)
 
 
 class MHAttention(nn.Module):
@@ -153,7 +193,10 @@ class MHAttention(nn.Module):
         self.attention_layer.reset_parameters(generator)
 
     def forward(self, query, keyval, use_kernels: bool, generator: torch.Generator = None):
-        return self.attention_layer(query, keyval, use_kernels, generator)
+        """query (B, E), keyval (B, S, E) -> (B, E) output and (B, 1, S)
+        weights: one query position, the key as the value."""
+        out, wts = self.attention_layer(query[:, None], keyval, keyval, use_kernels, generator)
+        return out[:, 0], wts
 
 
 def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

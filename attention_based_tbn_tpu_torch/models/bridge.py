@@ -20,6 +20,8 @@ ResNet and VGG towers in torchvision's layout under ``Base_<m>.model.``
   tower's family is told by its keys (``model.layer...`` ResNet,
   ``model.features...`` VGG, else BN-Inception), VGG's BatchNorm by its
   running statistics and its depth by its number of convs.
+* :func:`tower_state_dict_to_jax` — the inverse for one tower, the trees
+  of a converted ``.npz`` tower (``models/convert_cli.py``).
 * :func:`kernel_keys` — the state-dict keys whose tensors are images of
   JAX ``kernel`` leaves (conv and dense weights: what the serving export
   quantizes or casts).
@@ -313,7 +315,7 @@ def _vgg_to_jax(tower: str, sd: Mapping, params: Dict, stats: Dict) -> None:
                  value.T if leaf == "weight" else value)
 
 
-def _tower_arch(tower_keys) -> str:
+def tower_arch(tower_keys) -> str:
     """A tower's family from its state-dict keys (relative to the tower)."""
     rest = [k[len("model."):] for k in tower_keys if k.startswith("model.")]
     if any(k.startswith("features.") for k in rest):
@@ -337,7 +339,7 @@ def state_dict_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
             tower, _, rest = key.partition(".")
             towers.setdefault(tower, {})[rest] = value
     for tower, tower_sd in towers.items():
-        arch = _tower_arch(tower_sd)
+        arch = tower_arch(tower_sd)
         if arch == "bninception":
             _bninception_to_jax(tower, tower_sd, params, stats)
         else:
@@ -375,6 +377,17 @@ def state_dict_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
                  value.T if leaf == "weight" else value)
         # pe.0.pe, prototype_wts and num_batches_tracked are regenerated
     return {"params": params, "batch_stats": stats}
+
+
+def tower_state_dict_to_jax(state_dict: Mapping[str, Any], arch: str = "bninception"
+                            ) -> Dict[str, Dict]:
+    """One tower's state dict (BN-Inception's keys relative to the tower,
+    torchvision's ResNet or VGG keys) -> its Flax trees {"params",
+    "batch_stats"} as numpy: the inverse of :func:`jax_tower_to_state_dict`,
+    through :func:`state_dict_to_jax` on the keys placed under one tower."""
+    prefix = _tower_prefix("Base_T", arch)
+    trees = state_dict_to_jax({prefix + k: v for k, v in state_dict.items()})
+    return {name: tree.get("Base_T", {}) for name, tree in trees.items()}
 
 
 def kernel_keys(state_dict: Mapping[str, Any]) -> set:

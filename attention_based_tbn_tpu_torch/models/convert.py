@@ -1,9 +1,9 @@
 """Pretrained tower weights -> a tower of the port.
 
 Port of the JAX package's ``models/convert.py`` (``convert_bninception``,
-``convert_resnet``, ``convert_vgg``, ``adapt_first_conv_at``) and
-``models/convert_cli.py`` (``load_npz``) for the files
-``models/builder.load_pretrained_towers`` reads:
+``convert_resnet``, ``convert_vgg``, ``adapt_first_conv_at``) for the files
+``models/builder.load_pretrained_towers`` reads (a ``.npz`` through
+``models/convert_cli.load_npz``):
 
 * a pretrainedmodels BN-Inception state dict (``imagenet_bninception_rgb.pth``,
   ``kinetics_bninception_flow.pth``; reference weights/download.sh). The
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .bridge import jax_tower_to_state_dict
+from .convert_cli import load_npz
 
 # the first conv of each tower family (state-dict module name)
 FIRST_CONVS = {"bninception": "conv1_7x7_s2", "resnet": "conv1", "vgg": "features.0"}
@@ -61,27 +62,13 @@ def convert_vgg(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
             if not k.startswith("classifier.6.") and not k.endswith("num_batches_tracked")}
 
 
-def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
-    tree: Dict = {}
-    for path, value in flat.items():
-        parts = path.split("/")
-        node = tree
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = value
-    return tree
-
-
 def load_npz_tower(path: str, arch: str = "bninception", vgg_type: str = "16"
                    ) -> Dict[str, torch.Tensor]:
     """A tower converted to ``.npz`` by the JAX package (``params/...`` and
     ``batch_stats/...`` arrays) -> the port's tower state dict (ResNet's and
     VGG's in torchvision's keys)."""
-    with np.load(path) as data:
-        trees = {prefix: _unflatten({k[len(prefix) + 1:]: data[k] for k in data.files
-                                     if k.startswith(prefix + "/")})
-                 for prefix in ("params", "batch_stats")}
-    state = jax_tower_to_state_dict(trees["params"], trees["batch_stats"], arch, vgg_type)
+    params, stats = load_npz(path)
+    state = jax_tower_to_state_dict(params, stats, arch, vgg_type)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()
             if not k.endswith("num_batches_tracked")}
 

@@ -126,6 +126,16 @@ class TBNSpec:
     merge_inception: bool = True
     # tpu.remat: rematerialize each tower in the backward pass.
     remat: bool = False
+    # tpu.direct_stem: the JAX package's plain 7x7/2 stem conv in place of its
+    # column-packed rewrite. It only unpacks a host-packed visual stream, and
+    # the port's loader never packs one (data/loader.py), so the port's stem
+    # is the same either way.
+    direct_stem: bool = False
+    # tpu.pool_proj_conv: the JAX package's avg-pool + 1x1 projection as one
+    # 3x3 conv whose taps each hold the 1x1 kernel / 9 (it acts at eval with
+    # merge_inception=false). That is the same math as the port's unmerged
+    # eval of the branch (models/bn_inception.py), which runs either way.
+    pool_proj_conv: bool = False
     # RGB mean is BGR-ordered, matching the reference's BGR decode.
     rgb_mean: Tuple[float, ...] = (0.408, 0.459, 0.502)
     rgb_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
@@ -168,6 +178,8 @@ class TBNSpec:
             quantize=str(cfg.get_path("tpu.quantize", "") or ""),
             merge_inception=bool(cfg.get_path("tpu.merge_inception", True)),
             remat=bool(cfg.get_path("tpu.remat", False)),
+            direct_stem=bool(cfg.get_path("tpu.direct_stem", False)),
+            pool_proj_conv=bool(cfg.get_path("tpu.pool_proj_conv", False)),
         )
 
     @property

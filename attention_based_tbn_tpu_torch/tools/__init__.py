@@ -1,1 +1,2 @@
-"""Entry points of the port: serving, evaluation, the training loop."""
+"""Entry points of the port: serving, export, evaluation, the training loop,
+the visualizer."""

@@ -295,24 +295,28 @@ def main(argv=None):
 
     from ..config import load_config
     from ..utils.misc import get_modality
+    from ..utils.platform import cli_device, note_unused_keys
     from .test import load_state
 
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: tpu.platform's, cuda unless it says cpu)")
     args, overrides = parser.parse_known_args(argv)
     cfg = load_config(overrides=overrides)
+    device = cli_device(cfg, args.device)
     modality = get_modality(cfg)
     logging.basicConfig(level=logging.INFO)
     logger = logging.getLogger("export")
-    state = load_state(cfg, logger, modality, args.device) if cfg.test.pre_trained else None
+    note_unused_keys(cfg, logger)
+    state = load_state(cfg, logger, modality, device) if cfg.test.pre_trained else None
     buckets = cfg.get_path("tpu.export_buckets", None)
     paths = export_inference(
         cfg, modality, state=state,
         batch_size=int(cfg.get_path("tpu.export_batch", 1)),
         serving_dtype=str(cfg.get_path("tpu.serving_dtype", "") or "") or None,
         batch_buckets=list(buckets) if buckets else None,
-        logger=logger, device=args.device)
+        logger=logger, device=device)
     print(json.dumps(paths, indent=2))
 
 

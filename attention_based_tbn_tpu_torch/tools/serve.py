@@ -528,6 +528,7 @@ def main(argv=None):
     import sys
 
     from ..config import load_config
+    from ..utils.platform import cli_device, note_unused_keys
 
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -535,7 +536,8 @@ def main(argv=None):
                         help="export bundle directory (tools/export.py); without it the "
                              "model is built from the config overrides")
     parser.add_argument("--weights", default=None, help="state-dict file (torch.save)")
-    parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: tpu.platform's, cuda unless it says cpu)")
     parser.add_argument("--port", type=int, default=0, help="serve HTTP on this port")
     parser.add_argument("--bench", type=int, default=0,
                         help="latency iterations per batch bucket")
@@ -549,9 +551,11 @@ def main(argv=None):
     if args.bundle:
         if overrides or args.weights:
             parser.error("a bundle carries its weights and config: no --weights or overrides")
-        model = BundleModel(args.bundle, device=args.device)
+        model = BundleModel(args.bundle, device=args.device or "cuda")
     else:
-        model = ServingModel(load_config(overrides=overrides), args.weights, device=args.device)
+        cfg = load_config(overrides=overrides)
+        note_unused_keys(cfg)
+        model = ServingModel(cfg, args.weights, device=cli_device(cfg, args.device))
     if args.bench:
         for bs in model.batch_buckets:
             print(json.dumps(bench(model, args.bench, bs)))

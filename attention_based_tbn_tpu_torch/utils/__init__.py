@@ -1,2 +1,2 @@
-"""Host-side helpers: device selection, metrics, logging, eval restore and
-the challenge JSON."""
+"""Host-side helpers: device and platform keys, metrics, logging, eval
+restore and the challenge JSON."""

@@ -26,7 +26,7 @@ its streaming route) and a ragged one, each record naming the route the
 library took (``route``), and a NaN input; consensus_heads with its device
 time by CUDA graph (``graph_ms``) at every shape, plus one-row, one-clip,
 F = 1024, 2048 and 4096 (a ResNet or VGG tower feeding the heads alone)
-and one-, three- and four-head cases. Then drives eight paths,
+and one-, three- and four-head cases. Then drives nine paths,
 each with the kernels' launch counts set to 0 just before it and read just
 after:
 
@@ -77,6 +77,19 @@ after:
   epoch 3, the history hold 3 epochs); the ``.pth`` reloaded into a fresh
   train state, bit-equal to the trained one; ``main`` in test mode from
   it with the fused stem and fast consensus (the challenge JSON complete);
+* the visualizer (``vis_path``, on the training entry point's fixture and
+  checkpoint): ``models/convert_back``'s CLI writes the reference ``.pth``
+  (seconds, bytes), which reloads strictly through ``load_weights`` with
+  logits bit-equal to the checkpoint's own; ``tools/vis.initialize`` from
+  it (``config_vis``: 3 segments, batch 1, bf16, kernels on),
+  ``create_dataset`` on the two (verb, noun) pairs with the most clips,
+  ``get_info`` on up to 8 samples (``pe_block`` and ``mha`` launched once
+  a forward) against the same with ``tpu.use_pallas=false`` (scores within
+  the drift bound; argmax agreement, entropy gap), ``panels``' shapes, the
+  PNG where matplotlib imports and the clip where cv2 does; one general
+  MHA call (3 queries, key != value, float32) against the CPU;
+  ``models/convert_cli`` on a seeded BN-Inception tower, bit-equal through
+  ``load_npz``;
 * the serving export: the flagship with ``tpu.fused_stem``,
   ``tpu.fast_consensus`` and ``tpu.pool_impl=pallas`` exported by
   ``tools/export.export_inference`` as a bf16 bundle (batch 10, a bucket
@@ -156,11 +169,16 @@ from attention_based_tbn_tpu_torch import main as port_main
 from attention_based_tbn_tpu_torch import native
 from attention_based_tbn_tpu_torch.config import load_config
 from attention_based_tbn_tpu_torch.data import synthetic
+from attention_based_tbn_tpu_torch.data.loader import collate
 from attention_based_tbn_tpu_torch.data.records import load_annotations
-from attention_based_tbn_tpu_torch.models.attention import PE_CHANNELS, positional_encoding_table
+from attention_based_tbn_tpu_torch.models.attention import (
+    PE_CHANNELS, MultiheadAttention, positional_encoding_table,
+)
 from attention_based_tbn_tpu_torch.models.bn_inception import BN_INCEPTION_BLOCKS, BNInception
 from attention_based_tbn_tpu_torch.models import layers
 from attention_based_tbn_tpu_torch.models.builder import build_model
+from attention_based_tbn_tpu_torch.models import convert_back, convert_cli
+from attention_based_tbn_tpu_torch.models.convert import convert_bninception, load_npz_tower
 from attention_based_tbn_tpu_torch.ops import build, kernels
 from attention_based_tbn_tpu_torch.parallel.optim import lr_at_epoch
 from attention_based_tbn_tpu_torch.preprocessing import create_flow_pickle
@@ -170,10 +188,12 @@ from attention_based_tbn_tpu_torch.parallel.train_step import (
 from attention_based_tbn_tpu_torch.tools import fused_block_probe
 from attention_based_tbn_tpu_torch.tools.serve import ServingModel, bench, make_server
 from attention_based_tbn_tpu_torch.tools import train as port_train
+from attention_based_tbn_tpu_torch.tools import vis
 from attention_based_tbn_tpu_torch.tools.train import checkpoint_stem, train_one_epoch, validate
 from attention_based_tbn_tpu_torch.utils import checkpoint
 from attention_based_tbn_tpu_torch.utils.metrics import Metric
 from attention_based_tbn_tpu_torch.utils.misc import get_modality
+from attention_based_tbn_tpu_torch.utils.device import tf32_scope
 from attention_based_tbn_tpu_torch.utils.timing import event_ms, graph_ms
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and operations/s by
@@ -193,8 +213,11 @@ WGMMA_RTOL = 1e-5
 DRIFT_REL_RMSE = 0.04
 FP32_LOGIT_RTOL = 1e-4
 ROWS = (25, 250)  # B*N at b=1 and b=10 with 25 segments
-# pe_block / mha rows: also one evaluation batch's 2 clips x 10 crops x 25
-KERNEL_ROWS = ROWS + (500,)
+# config_vis: a visualizer forward holds one clip of 3 segments
+VIS_ROWS = 3
+# pe_block / mha rows: also one evaluation batch's 2 clips x 10 crops x 25,
+# and the visualizer's forward
+KERNEL_ROWS = (VIS_ROWS,) + ROWS + (500,)
 S, E, HEADS = 13, 1024, 4
 REPLACES = {
     "pe_block": "attention_based_tbn_tpu/ops/pallas_kernels.py:122",
@@ -2296,7 +2319,7 @@ def state_equal(state, other) -> dict:
             "step": state.step == other.step}
 
 
-def trainer_path(card: str, failures: list) -> dict:
+def trainer_path(card: str, failures: list, then=None) -> dict:
     """The training entry point at full width: the port's main in train
     mode on a tri-modal fixture (RGB JPEG frames, Flow JPEG pairs in
     Epic-Kitchens' own layout, WAV audio; write_trimodal_fixture) with
@@ -2304,8 +2327,10 @@ def trainer_path(card: str, failures: list) -> dict:
     again to resume 1 epoch from the written .pth; the .pth reloaded into a
     fresh train state (bit-equal to the trained one); main in test mode
     from it with the fused stem and fast consensus. Launch counts set to 0
-    just before the first main and read after each step. Returns the
-    launches of the whole phase."""
+    just before the first main and read after each step. ``then(card,
+    failures, root, pth, overrides)``, when given, runs on the fixture and
+    the checkpoint before they are removed (vis_path). Returns the launches
+    of the whole phase."""
     root = tempfile.mkdtemp(prefix=".smoke_fixture_",
                             dir=os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -2431,9 +2456,235 @@ def trainer_path(card: str, failures: list) -> dict:
         for name in TRAINER_KERNELS + ("max_pool_backward",):
             if launches[name] < 1:
                 failures.append(f"kernel {name} was not launched on the trainer path")
+        if then is not None:
+            then(card, failures, root, stem + ".pth", overrides)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# The visualizer's path (tools/vis.py), on the trainer path's fixture and
+# checkpoint: convert_back's reference .pth, vis.initialize from it
+# (config_vis: 3 segments, batch 1, bf16, kernels on), a dataset filtered
+# to the fewest (verb, noun) pairs that hold VIS_SAMPLES clips, get_info's
+# sweep with the kernels on and off, panels, the PNG and the clip.
+VIS_SAMPLES = 8       # get_info's samples
+VIS_MHA_TOL = 1e-5    # general MHA, float32 on the card against the CPU (rtol and atol)
+VIS_MHA_SHAPE = (2, 3, 13, 1024, 4)  # B, L, S, E, heads
+
+
+def write_class_tables(root: str, verbs: int, nouns: int) -> None:
+    """EPIC_verb_classes.csv / EPIC_noun_classes.csv for the fixture: class
+    i named ``verb<i>`` / ``noun<i>``, so an action list resolves."""
+    for kind, n in (("verb", verbs), ("noun", nouns)):
+        with open(os.path.join(root, "annotations", f"EPIC_{kind}_classes.csv"), "w",
+                  newline="") as fh:
+            writer = csv.writer(fh)
+            writer.writerow([f"{kind}_id", "class_key", f"{kind}s"])
+            writer.writerows([i, f"{kind}{i}", f"['{kind}{i}']"] for i in range(n))
+
+
+def vis_action_pairs(root: str, clips: int) -> list:
+    """The fewest (verb, noun) name pairs of the labelled CSV, those with
+    the most clips first (first use breaks ties), that hold ``clips`` clips
+    (all of them where the file holds fewer)."""
+    with open(os.path.join(root, "annotations", "labelled.csv"), newline="") as fh:
+        pairs = [(f"verb{r['verb_class']}", f"noun{r['noun_class']}")
+                 for r in csv.DictReader(fh)]
+    chosen, held = [], 0
+    for pair in sorted(dict.fromkeys(pairs), key=lambda p: -pairs.count(p)):
+        if held >= clips:
+            break
+        chosen.append(pair)
+        held += pairs.count(pair)
+    return chosen
+
+
+def general_mha_check() -> dict:
+    """One general MultiheadAttention call (L = 3 queries, key != value,
+    float32, TF32 off) on the card against the same call on the CPU."""
+    b, length, s, e, heads = VIS_MHA_SHAPE
+    mha = MultiheadAttention(e, heads)
+    mha.reset_parameters(torch.Generator().manual_seed(21))
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, length, e), (b, s, e), (b, s, e)))
+    with torch.no_grad():
+        want = mha.eval()(q, k, v, True)
+        with tf32_scope("float32"):
+            got = mha.cuda()(q.cuda(), k.cuda(), v.cuda(), True)
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    ok = all(torch.allclose(g.cpu(), w, rtol=VIS_MHA_TOL, atol=VIS_MHA_TOL)
+             for g, w in zip(got, want))
+    return {"shape": {"B": b, "L": length, "S": s, "E": e, "heads": heads},
+            "out": list(got[0].shape), "weights": list(got[1].shape), "max_abs_err": err,
+            "tol": VIS_MHA_TOL, "ok": ok}
+
+
+def convert_cli_check(root: str) -> dict:
+    """convert_cli on write_pretrained's BN-Inception tower: the .npz read
+    back by load_npz equals the in-memory conversion bit for bit, and
+    through models/convert's load_npz_tower gives the tower's own state
+    dict back bit for bit."""
+    sizes = write_pretrained(os.path.join(root, "vis_weights"), seed=4)
+    src = os.path.join(root, "vis_weights", "imagenet_bninception_rgb.pth")
+    out = os.path.join(root, "vis_weights", "imagenet_bninception_rgb.npz")
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_cli.main(["--input", src, "--kind", "bninception", "--output", out])
+    seconds = time.perf_counter() - start
+    params, stats = convert_cli.load_npz(out)
+    want_params, want_stats = convert_cli.convert(checkpoint.read_state_dict(src), "bninception")
+    flat, want = convert_cli.flatten({"params": params, "batch_stats": stats}), \
+        convert_cli.flatten({"params": want_params, "batch_stats": want_stats})
+    trees_equal = set(flat) == set(want) and all(
+        flat[k].dtype == want[k].dtype and np.array_equal(flat[k], want[k]) for k in want)
+    tower = convert_bninception(checkpoint.read_state_dict(src))
+    back = load_npz_tower(out)
+    tower_equal = set(back) == set(tower) and all(torch.equal(back[k], tower[k]) for k in tower)
+    return {"seconds": seconds, "arrays": len(flat), "pth_bytes": sizes,
+            "npz_bytes": os.path.getsize(out), "bit_equal": trees_equal and tower_equal}
+
+
+def vis_path(card: str, failures: list, root: str, pth: str, trainer_overrides: list) -> dict:
+    """The visualizer on the card (see VIS_SAMPLES above). Launch counts set
+    to 0 just before each get_info sweep and read just after. Emits the
+    phase's line and its launches line; returns the kernels-on launches."""
+    began = time.perf_counter()
+    seconds = {}
+    ref = os.path.join(root, "reference.pth")
+    start = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        convert_back.main(["--output", ref, f"test.pre_trained={pth}"] + trainer_overrides)
+    seconds["convert_back"] = time.perf_counter() - start
+
+    write_class_tables(root, *CLASS_HEADS)
+    pairs = vis_action_pairs(root, VIS_SAMPLES)
+    vis_over = [f"data_dir={root}", f"out_dir={root}/out", "data.audio.read_audio_pickle=false",
+                "data.flow.read_flow_pickle=false",
+                "train.annotation_file=annotations/labelled.csv", "val.vid_list="]
+    start = time.perf_counter()
+    cfg, model, modality, state = vis.initialize(vis_over, ref)
+    seconds["initialize"] = time.perf_counter() - start
+    dataset = vis.create_dataset(cfg, modality, action_list=pairs)
+    n = min(VIS_SAMPLES, len(dataset))
+
+    # the reference .pth against the port's own checkpoint: strict, equal
+    left_out = checkpoint.load_weights(model, checkpoint.read_state_dict(ref), ref)
+    own = build_model(cfg, modality, device="cuda", seed=1)
+    checkpoint.load_weights(own, checkpoint.read_state_dict(pth), pth)
+    theirs = own.state_dict()
+    weights_equal = all(torch.equal(v, theirs[k]) for k, v in model.state_dict().items())
+    batch, _, _ = collate([dataset.sample(0)])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        got, want = model(batch), own(batch)
+    logits_equal = all(torch.equal(got[k], want[k]) for k in want)
+    del own
+    torch.cuda.empty_cache()
+
+    off_cfg, off_model, _, off_state = vis.initialize(vis_over + ["tpu.use_pallas=false"], ref)
+    for args in ((cfg, model, state), (off_cfg, off_model, off_state)):
+        vis.sweep(*args, dataset, max_samples=1)  # warm-up: first calls out of the timed sweeps
+    sweeps, launches_by = {}, {}
+    for side, args in (("on", (cfg, model, state)), ("off", (off_cfg, off_model, off_state))):
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        sweeps[side] = vis.sweep(*args, dataset, max_samples=n)
+        torch.cuda.synchronize()
+        seconds[f"get_info_{side}"] = time.perf_counter() - start
+        launches_by[side] = launch_counts()
+    (rows_on, scores_on), (rows_off, scores_off) = sweeps["on"], sweeps["off"]
+    launches_on, launches_off = launches_by["on"], launches_by["off"]
+    drift = rel_rmse(*(np.concatenate([sc["verb"], sc["noun"]], axis=1)
+                       for sc in (scores_on, scores_off)))
+    agree = {key: sum(a[f"pred_{key}"] == b[f"pred_{key}"] for a, b in zip(rows_on, rows_off)) / n
+             for key in ("verb", "noun")}
+    entropy_gap = max(abs(a["attn_entropy"] - b["attn_entropy"])
+                      for a, b in zip(rows_on, rows_off))
+    del off_model, off_state
+    torch.cuda.empty_cache()
+
+    start = time.perf_counter()
+    grid = vis.panels(cfg, model, state, dataset, 0)
+    seconds["panels"] = time.perf_counter() - start
+    shapes = {name: list(grid[name].shape) for name in ("rgb", "spectrograms", "weights")}
+    shapes["top5"] = {key: len(top) for key, (top, _) in grid["top5"].items()}
+
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        rendered = {"done": False, "reason": f"matplotlib is not importable: {exc}"}
+    else:
+        start = time.perf_counter()
+        png = vis.visualize(cfg, model, state, dataset, 0,
+                            out_path=os.path.join(root, "vis", "vis_0.png"))
+        rendered = {"done": True, "png_bytes": os.path.getsize(png),
+                    "seconds": time.perf_counter() - start}
+    try:
+        import cv2  # noqa: F401
+    except ImportError as exc:
+        clip = {"done": False, "reason": f"cv2 is not importable: {exc}"}
+    else:
+        start = time.perf_counter()
+        meta = grid["meta"]
+        path = vis.save_action_segment(root, meta["vid_id"], meta["start_time"],
+                                       meta["stop_time"],
+                                       out_path=os.path.join(root, "vis", "temp.MP4"),
+                                       fps=float(cfg.data.vid_fps),
+                                       rgb_prefix=cfg.data.rgb.dir_prefix)
+        clip = {"done": True, "file": os.path.basename(path), "bytes": os.path.getsize(path),
+                "seconds": time.perf_counter() - start}
+
+    start = time.perf_counter()
+    mha = general_mha_check()
+    seconds["general_mha"] = time.perf_counter() - start
+    cli = convert_cli_check(root)
+    seconds["convert_cli"] = cli["seconds"]
+    seconds["phase"] = time.perf_counter() - began
+    launches = {"pe_block": launches_on["pe_block"], "mha": launches_on["mha"]}
+    emit({"phase": "vis_path", "gpu": card,
+          "config": {"entry": "config_vis", "segments": int(cfg.test.num_segments),
+                     "compute_dtype": cfg.tpu.compute_dtype,
+                     "use_pallas": bool(cfg.tpu.use_pallas), "modalities": modality},
+          "convert_back": {"seconds": seconds["convert_back"], "bytes": os.path.getsize(ref)},
+          "reload": {"strict": left_out == {"not_in_file": [], "not_in_model": []},
+                     "left_out": left_out, "weights_equal": weights_equal,
+                     "logits_bit_equal": logits_equal},
+          "actions": pairs, "samples": n, "rows": rows_on,
+          "kernels_on_vs_off": {"score_rel_rmse": drift, "bound": DRIFT_REL_RMSE,
+                                "argmax_agreement": agree, "max_entropy_gap": entropy_gap},
+          "launches": {"kernels_on": launches, "kernels_off": {
+              "pe_block": launches_off["pe_block"], "mha": launches_off["mha"]}},
+          "panels": shapes, "general_mha": mha, "convert_cli": cli,
+          "rendered": rendered, "clip": clip, "seconds": seconds})
+    emit({"phase": "launches", "path": "vis", **launches_on})
+    if not (left_out == {"not_in_file": [], "not_in_model": []} and weights_equal):
+        failures.append(f"vis path: the reference .pth did not reload whole: {left_out}")
+    if not logits_equal:
+        failures.append("vis path: the reference .pth's logits differ from the checkpoint's")
+    if n < 1:
+        failures.append(f"vis path: the action list {pairs} kept no clip")
+    if not drift < DRIFT_REL_RMSE:
+        failures.append(f"vis path: scores kernels on vs off rel-RMSE {drift:.4g}")
+    if launches != {"pe_block": n, "mha": n}:
+        failures.append(f"vis path: launches {launches}, expected one each per forward ({n})")
+    if launches_off["pe_block"] or launches_off["mha"]:
+        failures.append(f"vis path: kernels off launched {launches_off}")
+    if not mha["ok"]:
+        failures.append(f"vis path: general MHA on the card vs the CPU {mha['max_abs_err']:.3g}")
+    if not cli["bit_equal"]:
+        failures.append("vis path: convert_cli's .npz is not bit-equal to its conversion")
+    if rendered["done"] and rendered["png_bytes"] < 1000:
+        failures.append(f"vis path: the PNG holds {rendered['png_bytes']} bytes")
+    if clip["done"] and clip["bytes"] < 1:
+        failures.append("vis path: the clip is empty")
+    if shapes["weights"][0] != int(cfg.test.num_segments):
+        failures.append(f"vis path: panel shapes {shapes}")
+    if shapes["weights"][0] not in KERNEL_ROWS:
+        failures.append(f"vis path: a forward of {shapes['weights'][0]} rows, which "
+                        f"check_kernels does not hold against the plain versions")
+    return launches_on
 
 
 # The multi-rank path: the port's data parallelism (parallel/mesh) through
@@ -3495,7 +3746,8 @@ def main(argv=None) -> int:
     main_case["max_pool"] = pool_case
 
     # the training entry point: main in train mode, resume, reload, test mode
-    trainer_launches = trainer_path(card, failures)
+    # then the visualizer on its fixture and checkpoint (vis_path)
+    trainer_launches = trainer_path(card, failures, then=vis_path)
     emit({"phase": "launches", "path": "trainer", **trainer_launches})
 
     # the serving export: bundles with the kernels as op nodes, served

@@ -13,6 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "attention_based_tbn_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax")
 JAX_PACKAGE = "attention_based_tbn_tpu"
+DRAWING_ROOTS = ("matplotlib", "cv2", "PIL")
 
 
 def forbidden(name: str) -> bool:
@@ -72,9 +73,31 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
                    "ops.kernels", "ops.pooling", "models.losses", "parallel.optim",
                    "parallel.train_step", "utils.metrics", "utils.checkpoint",
                    "utils.logging", "data.loader", "data.dataset", "data.classes",
-                   "models.builder", "models.convert", "models.bridge"):
+                   "models.builder", "models.convert", "models.bridge", "tools.vis",
+                   "models.convert_back", "models.convert_cli", "utils.platform"):
         assert f"{PACKAGE}.{module}" in result["imported"]
     assert [m for m in result["loaded"] if forbidden(m)] == []
+    # drawing and video libraries load only where a figure or a clip is made
+    assert [m for m in result["loaded"] if m.split(".")[0] in DRAWING_ROOTS] == []
+
+
+def test_drawing_libraries_are_imported_only_inside_functions():
+    """matplotlib, cv2 and PIL may be missing on a host: no port module and
+    not chip_smoke.py imports them at module level."""
+    offenders = []
+    for path in port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, REPO), n) for n in names
+                          if n.split(".")[0] in DRAWING_ROOTS]
+    assert not offenders
 
 
 def _run_smoke(cwd):
