@@ -42,7 +42,12 @@ counters live in the real implementations; each op's fake implementation
 checks what the shapes alone decide and gives the outputs' shapes. Each
 wrapper counts its launches in ``<wrapper>.launches`` (one per launch that
 reached the card; a trace counts none), so a run can show that it went
-through the kernels.
+through the kernels. Under a profiler session the call on the card of each
+kernel that serving and training run (checks, operand packing, the op's
+dispatch and the launch) is a ``kernel.<name>`` span (``utils/spans.py``),
+``<name>`` its key in :data:`WRAPPERS`: ``pe_block``, ``mha``,
+``max_pool`` (its backward: ``kernel.max_pool_backward``), ``fused_stem``
+and ``consensus_heads``.
 
 Activations are fp32 or bf16, and so are the parameters of ``pe_block``,
 ``mha`` and ``consensus_heads``: in the activations' type, in torch layout
@@ -64,6 +69,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.spans import span
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -277,9 +283,10 @@ def pe_block(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
     if x.device.type == "cpu":
         return pe_block_plain(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
                               num_groups, eps)
-    _require_cuda(x)
-    return _pe_block_op(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias, num_groups,
-                        eps)
+    with span("kernel.pe_block"):
+        _require_cuda(x)
+        return _pe_block_op(x, pe_table, conv_weight, conv_bias, gn_scale, gn_bias,
+                            num_groups, eps)
 
 
 @torch.library.custom_op("tbn::pe_block", mutates_args=(), device_types="cuda")
@@ -327,9 +334,10 @@ def pe_block_bf16(x, split, gn_scale, gn_bias, num_groups: int = 64, eps: float 
     ``gn_bias`` are bf16. Its launches count in ``pe_block.launches``."""
     if x.device.type == "cpu":
         return pe_block_split_plain(x, split, gn_scale, gn_bias, num_groups, eps)
-    _require_cuda(x)
-    w_x, pe_bias = split
-    return _pe_block_bf16_op(x, w_x, pe_bias, gn_scale, gn_bias, num_groups, eps)
+    with span("kernel.pe_block"):
+        _require_cuda(x)
+        w_x, pe_bias = split
+        return _pe_block_bf16_op(x, w_x, pe_bias, gn_scale, gn_bias, num_groups, eps)
 
 
 @torch.library.custom_op("tbn::pe_block_bf16", mutates_args=(), device_types="cuda")
@@ -420,9 +428,10 @@ def mha(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_b
     if query.device.type == "cpu":
         return mha_plain(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
                          out_proj_bias, num_heads)
-    _require_cuda(query)
-    return _mha_op(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
-                   out_proj_bias, num_heads)
+    with span("kernel.mha"):
+        _require_cuda(query)
+        return _mha_op(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
+                       out_proj_bias, num_heads)
 
 
 def _mha_shape_error(query, keyval, in_proj_weight, in_proj_bias, out_proj_weight,
@@ -706,7 +715,8 @@ class CeilMaxPool2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (taps,) = ctx.saved_tensors
-        return CeilMaxPool2d.backward_impl(grad, taps, ctx.input_shape, ctx.channels_last)
+        with span("kernel.max_pool_backward"):
+            return CeilMaxPool2d.backward_impl(grad, taps, ctx.input_shape, ctx.channels_last)
 
 
 def ceil_max_pool2d(x):
@@ -714,10 +724,11 @@ def ceil_max_pool2d(x):
     card (NCHW or channels-last, fp32 or bf16, no copy), differentiable."""
     if x.device.type == "cpu":
         return ceil_max_pool2d_plain(x)
-    _require_cuda(x)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return CeilMaxPool2d.apply(x)
-    return CeilMaxPool2d.forward_impl(x, False)[0]  # no taps, no autograd node
+    with span("kernel.max_pool"):
+        _require_cuda(x)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return CeilMaxPool2d.apply(x)
+        return CeilMaxPool2d.forward_impl(x, False)[0]  # no taps, no autograd node
 
 
 ceil_max_pool2d.launches = 0  # forward launches
@@ -778,8 +789,9 @@ def fused_stem(x, weight, bias, input_scale, input_offset, dtype):
     channels-last tensor."""
     if x.device.type == "cpu":
         return fused_stem_plain(x, weight, bias, input_scale, input_offset, dtype)
-    _require_cuda(x)
-    return _fused_stem_op(x, weight, bias, input_scale, input_offset, dtype)
+    with span("kernel.fused_stem"):
+        _require_cuda(x)
+        return _fused_stem_op(x, weight, bias, input_scale, input_offset, dtype)
 
 
 def _fused_stem_args_error(x, weight, bias, input_scale, input_offset, dtype) -> str:
@@ -951,14 +963,15 @@ def consensus_heads(features, weights, biases):
     here)."""
     if features.device.type == "cpu":
         return consensus_heads_plain(features, weights, biases)
-    _require_cuda(features)
-    out = _consensus_heads_op(features, list(weights), list(biases))
-    b, start, logits = features.shape[0], 0, []
-    for w in weights:
-        c = w.shape[0]
-        logits.append(out[b * start:b * (start + c)].view(b, c))
-        start += c
-    return logits
+    with span("kernel.consensus_heads"):
+        _require_cuda(features)
+        out = _consensus_heads_op(features, list(weights), list(biases))
+        b, start, logits = features.shape[0], 0, []
+        for w in weights:
+            c = w.shape[0]
+            logits.append(out[b * start:b * (start + c)].view(b, c))
+            start += c
+        return logits
 
 
 def _consensus_features_error(features, features_count: int, dtype, device) -> str:

@@ -45,6 +45,7 @@ import torch
 from ..models.losses import tbn_loss
 from ..models.tbn import TBNModel
 from ..utils.device import tf32_scope
+from ..utils.spans import span
 from . import mesh
 from .optim import Optimizer
 
@@ -137,20 +138,27 @@ def make_train_step(cfg) -> Callable:
     tensors; nothing synchronizes with the host."""
 
     def step(state: TrainState, batch, targets, epoch: int, true_bs: int):
-        model = state.model
-        model.train()
-        batch = to_device(batch, state.device)
-        targets = to_device(targets, state.device)
-        tb = _true_batch(batch, true_bs)
-        # the backward's convolutions and products take the forward's TF32 rule
-        with tf32_scope(model.spec.compute_dtype):
-            preds = model(batch, true_batch=tb, generator=state.generator)
-            loss = tbn_loss(preds, targets, cfg, epoch=epoch, train=True,
-                            attention_weights=preds.get("weights"), true_batch=tb)
-            loss["total"].backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, global_losses(_detach(loss)), global_rows(_detach(preds))
+        # under a profiler session each phase is a span (utils/spans.py)
+        with span("train.step"):
+            model = state.model
+            with span("train.to_device"):
+                model.train()
+                batch = to_device(batch, state.device)
+                targets = to_device(targets, state.device)
+                tb = _true_batch(batch, true_bs)
+            # the backward's convolutions and products take the forward's TF32 rule
+            with tf32_scope(model.spec.compute_dtype):
+                with span("train.forward"):
+                    preds = model(batch, true_batch=tb, generator=state.generator)
+                    loss = tbn_loss(preds, targets, cfg, epoch=epoch, train=True,
+                                    attention_weights=preds.get("weights"), true_batch=tb)
+                with span("train.backward"):
+                    loss["total"].backward()
+            with span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            with span("train.outputs"):
+                return state, global_losses(_detach(loss)), global_rows(_detach(preds))
 
     return step
 

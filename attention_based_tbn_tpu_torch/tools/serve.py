@@ -60,6 +60,7 @@ from ..models.tbn import TBNSpec
 from ..ops import kernels  # noqa: F401  (registers the tbn:: ops a bundle's programs call)
 from ..utils.device import resolve_device, tf32_scope
 from ..utils.misc import get_modality
+from ..utils.spans import span
 
 
 class ServerFault(RuntimeError):
@@ -172,32 +173,41 @@ class _Served:
         return arrays, true_bs
 
     def predict(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        arrays, true_bs = self._validate(batch)
-        bucket = min(b for b in self.batch_buckets if b >= true_bs)
-        tensors = {}
-        for name, arr in arrays.items():
-            # only the true rows cross to the device; the pad rows are made there
-            t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-            if true_bs < bucket:
-                t = torch.cat([t, t[:1].expand((bucket - true_bs,) + t.shape[1:])])
-            tensors[name] = t
-        if not self._lock.acquire(timeout=self.lock_timeout_s):
-            raise DispatcherTimeout(
-                f"device busy: lock not acquired within {self.lock_timeout_s:.0f}s"
-            )
-        try:
-            self.last_bucket = bucket
-            with torch.no_grad():
-                out = self._run(bucket, tensors)
-                arrays_out = {k: v.float().cpu().numpy() for k, v in out.items()}
-        finally:
-            self._lock.release()
-        if true_bs == bucket:
-            return arrays_out
-        # trim the pad rows: k rows per sample; an output that is not per
-        # row (k None) is returned whole
-        return {name: arr[: k * true_bs] if (k := self._row_mult.get(name)) else arr
-                for name, arr in arrays_out.items()}
+        # under a profiler session each phase is a span (utils/spans.py);
+        # the six children cover the request from end to end
+        with span("serve.predict"):
+            with span("serve.validate"):
+                arrays, true_bs = self._validate(batch)
+                bucket = min(b for b in self.batch_buckets if b >= true_bs)
+            with span("serve.stage"):
+                tensors = {}
+                for name, arr in arrays.items():
+                    # only the true rows cross to the device; the pad rows are made there
+                    t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+                    if true_bs < bucket:
+                        t = torch.cat([t, t[:1].expand((bucket - true_bs,) + t.shape[1:])])
+                    tensors[name] = t
+            with span("serve.lock_wait"):
+                if not self._lock.acquire(timeout=self.lock_timeout_s):
+                    raise DispatcherTimeout(
+                        f"device busy: lock not acquired within {self.lock_timeout_s:.0f}s"
+                    )
+            try:
+                self.last_bucket = bucket
+                with torch.no_grad():
+                    with span("serve.forward"):
+                        out = self._run(bucket, tensors)
+                    with span("serve.readback"):
+                        arrays_out = {k: v.float().cpu().numpy() for k, v in out.items()}
+            finally:
+                self._lock.release()
+            with span("serve.trim"):
+                if true_bs == bucket:
+                    return arrays_out
+                # trim the pad rows: k rows per sample; an output that is not
+                # per row (k None) is returned whole
+                return {name: arr[: k * true_bs] if (k := self._row_mult.get(name)) else arr
+                        for name, arr in arrays_out.items()}
 
 
 class ServingModel(_Served):

@@ -71,7 +71,9 @@ def train_one_epoch(cfg, state, step_fn, loader, metric: Metric, epoch: int, log
     running loss four times an epoch and the epoch's clips/s, measured to
     the metric's readback, which waits for every step to finish. With
     ``tpu.profile_steps`` = N and a ``run_dir``, epoch 0's first N steps are
-    traced by ``torch.profiler`` into ``<run_dir>/profile/trace.json``."""
+    traced by ``torch.profiler`` into ``<run_dir>/profile/trace.json``,
+    with each step's phases and kernel calls as named ranges
+    (``utils/spans.py``)."""
     no_batches = max(len(loader), 1)
     log_interval = max(no_batches // 4, 1)
     loss_tracker = None  # device-resident running loss: no per-step sync

@@ -1154,7 +1154,9 @@ def device_profile(run, needles=()) -> dict:
     longest kernels (torch.profiler's device events: kernels and copies),
     and the device's busy share of the call's host wall time (one stream,
     so device events do not overlap). ``run`` ends in a host sync.
-    ``needles``: substrings of kernel names whose launches are counted."""
+    ``needles``: substrings of kernel names whose launches are counted.
+    The device-side copies of the host's ``record_function`` ranges (the
+    program's spans, ``utils/spans.py``) span kernels and are not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1164,8 +1166,11 @@ def device_profile(run, needles=()) -> dict:
         wall_ms = (time.perf_counter() - start) * 1e3
     by_category: dict = {}
     by_kernel: dict = {}
+    ranges = {e.name for e in prof.events() if e.device_type == DeviceType.CPU
+              and getattr(e, "is_user_annotation", False)}
     for event in prof.events():
-        if event.device_type != DeviceType.CUDA:
+        if (event.device_type != DeviceType.CUDA or event.name in ranges
+                or getattr(event, "is_user_annotation", False)):
             continue
         ms = event.time_range.elapsed_us() / 1e3
         name = event.name.lower()
