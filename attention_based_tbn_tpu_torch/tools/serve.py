@@ -24,6 +24,9 @@ The contract:
   that holds it; rows are padded with copies of the first sample and the
   outputs trimmed back by their rows per sample (1 for the logits, N for
   the attention weights over the folded batch);
+* on a card, a request's arrays cross through page-locked host buffers
+  on a copy stream of their own (:class:`PinnedStaging`), so one
+  client's input copy overlaps another client's forward;
 * :class:`BatchingFront` coalesces concurrent requests into one ``predict``
   within a window (``--batch-window``) and splits the outputs back;
 * HTTP: ``POST /predict`` with an ``.npz`` body, ``GET /healthz``;
@@ -97,6 +100,81 @@ def input_specs(cfg, modality: Sequence[str], batch_size: int,
     return dict(sorted(specs.items()))
 
 
+def _pad_rows(t: torch.Tensor, bucket: int) -> torch.Tensor:
+    """``t`` with copies of its first row appended up to ``bucket`` rows."""
+    if t.shape[0] == bucket:
+        return t
+    return torch.cat([t, t[:1].expand((bucket - t.shape[0],) + t.shape[1:])])
+
+
+class PinnedStaging:
+    """Request inputs staged on a card through page-locked host memory.
+
+    A staging takes a set of pinned buffers (one an input, each at the
+    largest bucket's shape) from a pool, copies the request's rows into
+    them on the host, and issues their copies to the card on ``stream``:
+    one of torch's pooled streams, which are non-blocking, so the copy
+    neither waits for nor holds up the caller's stream, where another
+    request's forward may be running. The device tensors are allocated on
+    ``stream`` too: the caching allocator hands a stream a block only once
+    that stream's own uses of it are done, and a block freed by a forward
+    still running on the caller's stream is not done on it. The set goes
+    back to the pool with the event of its copies; whoever takes it next
+    waits for that event before writing into it.
+
+    The pool grows only when every set is taken, i.e. to the number of
+    requests staged at once, and ``counts`` gets ``pinned`` for each
+    staging and ``pinned_alloc`` for each set allocated."""
+
+    def __init__(self, input_specs: Dict[str, tuple], device: torch.device,
+                 counts: collections.Counter):
+        self._specs = input_specs
+        self._device = device
+        self._counts = counts
+        self.stream = torch.cuda.Stream(device)
+        self._free: "collections.deque" = collections.deque()  # (buffers, event), oldest first
+        self._lock = threading.Lock()
+
+    def _take(self):
+        with self._lock:
+            self._counts["pinned"] += 1
+            if self._free:
+                return self._free.popleft()
+            self._counts["pinned_alloc"] += 1
+        buffers = {name: torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                                     pin_memory=True)
+                   for name, (shape, dtype) in self._specs.items()}
+        return buffers, None
+
+    def stage(self, arrays: Dict[str, np.ndarray]):
+        """The arrays' rows as tensors on the card and the event their
+        copies record: the caller's stream waits on it before using them
+        (:meth:`ready`)."""
+        buffers, last_copy = self._take()
+        if last_copy is not None:
+            last_copy.synchronize()  # the set's last copy has left it (normally long since)
+        tensors = {}
+        with torch.cuda.stream(self.stream):
+            for name, arr in arrays.items():
+                host = buffers[name][: arr.shape[0]]
+                host.copy_(torch.from_numpy(arr))
+                tensors[name] = host.to(self._device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        with self._lock:
+            self._free.append((buffers, copied))
+        return tensors, copied
+
+    def ready(self, tensors: Dict[str, torch.Tensor], copied) -> None:
+        """Order the caller's stream after the copies, and keep each
+        tensor's block from being reused before that stream is done with
+        it."""
+        stream = torch.cuda.current_stream(self._device)
+        stream.wait_event(copied)
+        for t in tensors.values():
+            t.record_stream(stream)
+
+
 class _Served:
     """The request contract both servers keep. A subclass sets ``device``,
     ``input_specs`` (shapes at the largest bucket), ``batch_buckets``,
@@ -108,13 +186,20 @@ class _Served:
     ``predict`` serializes device execution with a lock (one card; a
     request that cannot take it within ``lock_timeout_s`` fails with
     :class:`DispatcherTimeout`). HTTP handler threads parse and respond
-    concurrently."""
+    concurrently. On a card a request stages its inputs before it waits
+    for the lock (:class:`PinnedStaging`); ``staging`` counts the requests
+    staged that way (``pinned``), the pinned buffer sets allocated
+    (``pinned_alloc``) and the requests copied as they are (``plain``: the
+    CPU)."""
 
     last_bucket: Optional[int] = None
 
-    def _init_lock(self, lock_timeout_s: float) -> None:
+    def _init_serving(self, lock_timeout_s: float) -> None:
         self.lock_timeout_s = float(lock_timeout_s)
         self._lock = threading.Lock()
+        self.staging: collections.Counter = collections.Counter()
+        self._pinned = (PinnedStaging(self.input_specs, self.device, self.staging)
+                        if self.device.type == "cuda" else None)
 
     def _run(self, bucket: int, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -180,13 +265,13 @@ class _Served:
                 arrays, true_bs = self._validate(batch)
                 bucket = min(b for b in self.batch_buckets if b >= true_bs)
             with span("serve.stage"):
-                tensors = {}
-                for name, arr in arrays.items():
-                    # only the true rows cross to the device; the pad rows are made there
-                    t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-                    if true_bs < bucket:
-                        t = torch.cat([t, t[:1].expand((bucket - true_bs,) + t.shape[1:])])
-                    tensors[name] = t
+                # only the true rows cross to the device; the pad rows are made there
+                arrays = {name: np.ascontiguousarray(arr) for name, arr in arrays.items()}
+                if self._pinned is None:
+                    tensors = {name: _pad_rows(torch.from_numpy(arr).to(self.device), bucket)
+                               for name, arr in arrays.items()}
+                else:
+                    tensors, copied = self._pinned.stage(arrays)
             with span("serve.lock_wait"):
                 if not self._lock.acquire(timeout=self.lock_timeout_s):
                     raise DispatcherTimeout(
@@ -194,8 +279,15 @@ class _Served:
                     )
             try:
                 self.last_bucket = bucket
+                if self._pinned is None:
+                    self.staging["plain"] += 1  # under the lock: handler threads predict at once
                 with torch.no_grad():
                     with span("serve.forward"):
+                        if self._pinned is not None:
+                            # the forward's stream waits for the copies only now: before
+                            # the lock, the wait would stall the other request's forward
+                            self._pinned.ready(tensors, copied)
+                            tensors = {name: _pad_rows(t, bucket) for name, t in tensors.items()}
                         out = self._run(bucket, tensors)
                     with span("serve.readback"):
                         arrays_out = {k: v.float().cpu().numpy() for k, v in out.items()}
@@ -242,7 +334,7 @@ class ServingModel(_Served):
             self._row_mult["weights"] = n_seg
         self.compute_dtype = self.spec.compute_dtype
         self.kernels = self.spec.use_pallas
-        self._init_lock(lock_timeout_s)
+        self._init_serving(lock_timeout_s)
 
     @property
     def output_names(self) -> List[str]:
@@ -287,7 +379,7 @@ class BundleModel(_Served):
         self.compute_dtype = self.manifest["compute_dtype"]
         self.serving_dtype = self.manifest["serving_dtype"]
         self.kernels = bool(self.manifest["kernel_ops"])
-        self._init_lock(lock_timeout_s)
+        self._init_serving(lock_timeout_s)
 
     def _run(self, bucket, tensors):
         with tf32_scope(self.compute_dtype):

@@ -1,14 +1,24 @@
 """The port's serving entry point on the CPU: batch-bucket routing,
 first-row padding and per-row trimming, input validation, weight files,
 the HTTP contract (200 / 400 / 411 / 413 / 503) and the CLI — plus the
-rule that a default-device entry point raises without a card, and the
-TF32 regime a forward sets for itself and undoes.
+rule that a default-device entry point raises without a card, the TF32
+regime a forward sets for itself and undoes, and the CPU's input staging
+(copied as it is, bit for bit the arrays-as-tensors path).
+
+On a card (``cuda`` marker): the staging through pinned buffers on a copy
+stream against the plain ``.to(device)`` path, bit for bit, alone and
+with two threads at once; the pinned buffer sets stop growing after
+warm-up; a bundle served that way matches the eager model. The file
+imports no JAX, so it runs on the card's machine too:
+
+    python -m pytest --noconftest tests/test_torch_port_serve.py -q
 
 Config: RGB + Audio, 64-px crops, 2 segments, 1.279 s audio, fp32.
 Tolerance for padded-vs-alone rows: 1e-5 (eval BatchNorm makes rows
 independent; only the batch size of the convolutions differs).
 """
 
+import collections
 import http.client
 import io
 import json
@@ -23,12 +33,21 @@ from attention_based_tbn_tpu_torch.models.builder import build_model
 from attention_based_tbn_tpu_torch.tools import serve
 from attention_based_tbn_tpu_torch.tools.serve import DispatcherTimeout, ServingModel, make_server
 from attention_based_tbn_tpu_torch.utils.device import resolve_device, tf32_scope
-from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
-    SMALL,
-    one_torch_thread,
-)
 
-OVERRIDES = SMALL + ["data.flow.enable=false"]
+# torch_port_helpers.SMALL (that module imports JAX): 64-px crops, 2
+# segments, 1.279 s audio, fp32; RGB + Audio
+OVERRIDES = ["data.audio.audio_length=1.279", "tpu.compute_dtype=float32",
+             "data.test_crop_size=64", "test.num_segments=2", "data.flow.enable=false"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, as torch_port_helpers.one_torch_thread: the
+    suite's xdist workers share a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -200,3 +219,114 @@ def test_forward_leaves_the_process_tf32_flags_alone(model):
     finally:
         hook.remove()
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+# ------------------------------------------------------------- input staging
+
+
+def _plain_predict(served, batch):
+    """``predict`` by the path it had before input staging: each array as
+    a tensor moved with ``.to(device)``, the pad rows copies of the first,
+    the forward, then the outputs read back and trimmed."""
+    rows = next(iter(batch.values())).shape[0]
+    bucket = min(b for b in served.batch_buckets if b >= rows)
+    tensors = {}
+    for name, arr in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(served.device)
+        tensors[name] = torch.cat([t, t[:1].expand((bucket - rows,) + t.shape[1:])])
+    with torch.no_grad():
+        out = served._run(bucket, tensors)
+    return {k: v.float().cpu().numpy()[: served._row_mult[k] * rows] for k, v in out.items()}
+
+
+def _assert_same(got, want):
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("rows", [4, 3], ids=["full", "padded"])
+def test_cpu_requests_are_copied_as_they_are(model, rows):
+    """On the CPU no pinned buffer is made: each request counts as
+    ``plain`` and its outputs equal the arrays-as-tensors path bit for bit."""
+    batch = model.example_batch(rows, seed=11)
+    before = collections.Counter(model.staging)
+    got = model.predict(batch)
+    assert model._pinned is None
+    assert model.staging - before == collections.Counter(plain=1)
+    assert model.staging["pinned"] == model.staging["pinned_alloc"] == 0
+    _assert_same(got, _plain_predict(model, batch))
+
+
+@pytest.fixture(scope="module")
+def card_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the staging's pinned path runs on a card")
+    return ServingModel(load_config(overrides=OVERRIDES), device="cuda", batch_buckets=(1, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 3], ids=["full", "padded"])
+def test_pinned_staging_matches_the_plain_copy(card_model, rows):
+    batch = card_model.example_batch(rows, seed=12)
+    before = collections.Counter(card_model.staging)
+    got = card_model.predict(batch)
+    assert card_model.staging["pinned"] - before["pinned"] == 1
+    assert card_model.staging["plain"] == 0
+    _assert_same(got, _plain_predict(card_model, batch))
+
+
+@pytest.mark.cuda
+def test_two_threads_at_once_match_serial_calls(card_model):
+    """Each thread's request stages on the copy stream while the other's
+    forward runs; every answer equals the same request served alone."""
+    batches = [card_model.example_batch(4, seed=20 + i) for i in range(6)]
+    want = [card_model.predict(b) for b in batches]
+    got, errors = [None] * len(batches), []
+
+    def client(k):
+        try:
+            for i in range(k, len(batches), 2):
+                got[i] = card_model.predict(batches[i])
+        except Exception as exc:  # reported below, on the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    assert card_model.staging["pinned_alloc"] <= 2  # never more sets than requests at once
+
+
+@pytest.mark.cuda
+def test_pinned_sets_stop_growing_after_warm_up(card_model):
+    batch = card_model.example_batch(3, seed=30)
+    card_model.predict(batch)  # warm-up
+    before = collections.Counter(card_model.staging)
+    for _ in range(20):
+        card_model.predict(batch)
+    assert card_model.staging["pinned"] - before["pinned"] == 20
+    assert card_model.staging["pinned_alloc"] == before["pinned_alloc"] >= 1
+
+
+@pytest.mark.cuda
+def test_bundle_served_through_pinned_staging_matches_eager(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the staging's pinned path runs on a card")
+    from attention_based_tbn_tpu_torch.tools.export import export_inference
+
+    cfg = load_config(overrides=OVERRIDES)
+    eager = ServingModel(cfg, device="cuda", batch_buckets=(2,))
+    export_inference(cfg, eager.modality, state=eager.model.state_dict(),
+                     out_dir=str(tmp_path), batch_size=2, device="cuda")
+    bundle = serve.BundleModel(str(tmp_path), device="cuda")
+    batch = bundle.example_batch(seed=31)
+    want, got = eager.predict(batch), bundle.predict(batch)
+    assert bundle.staging["pinned"] == 1 and bundle.staging["plain"] == 0
+    for key in want:
+        err = np.sqrt(np.mean((got[key] - want[key]) ** 2) / np.mean(want[key] ** 2))
+        assert err <= 1e-5, (key, err)

@@ -9,7 +9,8 @@ On the CPU: a served request (RGB + Audio, 64-px crops, 2 segments, fp32)
 splits into its six phases on the profiling thread and on a thread the
 profiler does not record; a train step into its five; each span encloses
 its profiler event; the recorder follows the profiler's flag. On a card
-(``cuda`` marker): one span a kernel launch over a served request.
+(``cuda`` marker): one span a kernel launch over a served request, and
+the six phases of a request whose inputs cross on a copy stream.
 """
 
 import threading
@@ -17,6 +18,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 
@@ -93,22 +95,46 @@ def test_nothing_is_recorded_without_a_profiler(served):
     assert spans.snapshot() == []
 
 
-@pytest.mark.parametrize("thread", ["profiling", "another"])
-def test_predict_splits_into_its_six_phases(served, thread):
+@pytest.fixture(scope="module")
+def card_served():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the pinned staging runs on a card")
+    return ServingModel(load_config(overrides=OVERRIDES), device="cuda", batch_buckets=(2,))
+
+
+@pytest.mark.parametrize("thread", ["profiling", "another",
+                                    pytest.param("card", marks=pytest.mark.cuda)])
+def test_predict_splits_into_its_six_phases(served, thread, request):
     """Also on a thread started inside the profile, whose operators the
-    profiler does not record: the buffer holds every thread's spans."""
-    batch = served.example_batch(1, seed=3)
-    with _cpu_profile():
+    profiler does not record: the buffer holds every thread's spans. On a
+    card (``card``, from another thread) the inputs cross on a copy
+    stream, pinned, apart from the forward's kernels; the six phases
+    still cover the request."""
+    model = request.getfixturevalue("card_served") if thread == "card" else served
+    batch = model.example_batch(1, seed=3)
+    if thread == "card":
+        model.predict(batch)  # the pinned buffers, cuDNN plans
+        spans.clear()
+    activities = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * (thread == "card")
+    with profile(activities=activities) as prof:
         if thread == "profiling":
-            served.predict(batch)
+            model.predict(batch)
         else:
-            worker = threading.Thread(target=served.predict, args=(batch,))
+            worker = threading.Thread(target=model.predict, args=(batch,))
             worker.start()
             worker.join(timeout=60)
             assert not worker.is_alive()
     root, children = _tree(spans.snapshot(), "serve.predict")
     _assert_covers(root, children, PREDICT_PHASES)
     assert (root.thread == threading.get_ident()) == (thread == "profiling")
+    if thread == "card":
+        device = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+        copies = {e.device_resource_id() for e in device if "HtoD" in e.name()}
+        kernels_ = {e.device_resource_id() for e in device
+                    if not e.name().startswith(("Memcpy", "Memset"))}
+        assert all("Pinned" in e.name() for e in device if "HtoD" in e.name())
+        assert copies and kernels_ and not copies & kernels_, (copies, kernels_)
 
 
 def test_spans_enclose_their_profiler_events(served):
